@@ -1,0 +1,224 @@
+"""Property slab + forward tile compositor
+(`vidu4d_tpu/ops/rasterize/pallas_kernel.py`).
+
+`pack_props` gathers per-splat properties into an entry-major ``(E, 32)``
+slab, one row per depth-sorted tile entry (the row layout of the JAX
+package: the two-plane intersection in affine-coefficient form, so that the
+per (entry, pixel) work is ~2 FMAs per component). `forward_tiles` runs the
+forward compositor over every (frame, tile): the hand-written CUDA kernel
+``csrc/tile_forward.cu`` for tensors on a CUDA device, its plain PyTorch
+version `forward_tiles_plain` for tensors on the CPU. There is no fallback
+from one to the other.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vidu4d_tpu_torch import kernels
+from vidu4d_tpu_torch.ops.rasterize import common
+
+# slab columns (pallas_kernel.py:60-73); 21 + n_extra of the 32 are used
+SLAB_WIDTH = 32
+PA, PB, PC = 0, 3, 6  # A = Tu x Tv, B = Tv x Tw, C = Tw x Tu (3 each)
+QD = 9      # q = det(Tu, Tv, Tw): 3D-branch depth numerator
+TW2 = 10    # Tw.z: 2D-branch depth
+E0, E1, E2 = 11, 12, 13  # rho2d = FIS*(px^2+py^2) + E0 + px*E1 + py*E2
+OPAC = 14
+RGB = 15
+NRM = 18
+EXTRA = 21
+MAX_EXTRA = SLAB_WIDTH - EXTRA
+CHUNK = 128  # tile segments start on CHUNK boundaries (bin_splats_aligned)
+TILE = 16    # the kernels run one thread per pixel of a 16x16 tile
+N_AUX = 12   # aux channels, see csrc/tile_forward.cu
+
+
+class _RowGather(torch.autograd.Function):
+    """props (P, 32) -> rows (E, 32) whose backward scatter-adds only the
+    first ``n_used`` columns (the backward kernel writes no other column,
+    so the rest of the cotangent is zero: `pallas_kernel.py:369-409`)."""
+
+    @staticmethod
+    def forward(ctx, props, ids, n_used):
+        ctx.save_for_backward(ids)
+        ctx.n_props = props.shape[0]
+        ctx.n_used = n_used
+        return props[ids]
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        n = ctx.n_used
+        narrow = torch.zeros((ctx.n_props, n), dtype=g.dtype, device=g.device)
+        narrow.index_add_(0, ids, g[:, :n])
+        rest = torch.zeros((ctx.n_props, g.shape[1] - n), dtype=g.dtype,
+                           device=g.device)
+        return torch.cat([narrow, rest], dim=1), None, None
+
+
+def pack_props(proj: common.SplatProjection, colors: torch.Tensor,
+               opacities: torch.Tensor, sorted_ids: torch.Tensor) -> torch.Tensor:
+    """One frame's per-splat properties gathered into the (E, 32) slab.
+
+    The affine coefficients are computed once per splat here; gradients to
+    Tu/Tv/Tw/center2d flow back through these lines by autograd."""
+    p = proj.tu.shape[0]
+    n_extra = colors.shape[-1] - 3
+    if n_extra > MAX_EXTRA:
+        raise ValueError(
+            f"the tile kernels support at most {MAX_EXTRA} extra channels "
+            f"(got {n_extra})"
+        )
+    tu, tv, tw = proj.tu, proj.tv, proj.tw
+    a = torch.linalg.cross(tu, tv, dim=-1)
+    b = torch.linalg.cross(tv, tw, dim=-1)
+    c = torch.linalg.cross(tw, tu, dim=-1)
+    q = torch.sum(a * tw, dim=-1, keepdim=True)
+    cx = proj.center2d[:, :1]
+    cy = proj.center2d[:, 1:2]
+    fis = common.FILTER_INV_SQUARE
+    props = torch.cat(
+        [
+            a, b, c, q, tw[:, 2:3],
+            fis * (cx * cx + cy * cy), -2.0 * fis * cx, -2.0 * fis * cy,
+            opacities[:, None], colors[:, :3], proj.normal, colors[:, 3:],
+            torch.zeros((p, SLAB_WIDTH - EXTRA - n_extra), dtype=tu.dtype,
+                        device=tu.device),
+        ],
+        dim=-1,
+    )
+    return _RowGather.apply(props, sorted_ids, EXTRA + n_extra)
+
+
+def _pixel_centers(num_tiles: int, tiles_x: int, tiles_per_frame: int,
+                   device) -> tuple:
+    """(T, 256) absolute pixel-centre coordinates of every tile's pixels."""
+    tl = torch.arange(num_tiles, device=device) % tiles_per_frame
+    lin = torch.arange(TILE * TILE, device=device)
+    pxf = ((tl % tiles_x) * TILE)[:, None] + (lin % TILE)[None, :]
+    pyf = ((tl // tiles_x) * TILE)[:, None] + (lin // TILE)[None, :]
+    return pxf.float() + 0.5, pyf.float() + 0.5
+
+
+def splat_response(rows, pxf, pyf):
+    """Per (entry, pixel) response from (T, K, 32) rows and (T, 1, 256)
+    pixel centres: the plain versions' copy of ``splat_response`` in
+    csrc/tile_common.cuh. Returns a dict of (T, K, 256) tensors."""
+    r = lambda i: rows[..., i:i + 1]
+    px_ = r(PA) + pxf * r(PB) + pyf * r(PC)
+    py_ = r(PA + 1) + pxf * r(PB + 1) + pyf * r(PC + 1)
+    pz_ = r(PA + 2) + pxf * r(PB + 2) + pyf * r(PC + 2)
+    pz_ok = pz_ != 0.0
+    ipz = 1.0 / torch.where(pz_ok, pz_, torch.ones_like(pz_))
+    rho3d = (px_ * px_ + py_ * py_) * (ipz * ipz)
+    pq = common.FILTER_INV_SQUARE * (pxf * pxf + pyf * pyf)
+    rho2d = pq + r(E0) + pxf * r(E1) + pyf * r(E2)
+    use3d = rho3d <= rho2d
+    rho = torch.minimum(rho3d, rho2d)
+    depth = torch.where(use3d, r(QD) * ipz, r(TW2).expand_as(rho3d))
+    g = torch.exp(-0.5 * rho)
+    return dict(px=px_, py=py_, pz_ok=pz_ok, ipz=ipz, rho3d=rho3d,
+                use3d=use3d, depth=depth, g=g, alpha_raw=r(OPAC) * g)
+
+
+def ndc_depth(depth_pos):
+    f, n = common.FAR_PLANE, common.NEAR_PLANE
+    return (f * depth_pos - f * n) / ((f - n) * depth_pos)
+
+
+@torch.no_grad()
+def forward_tiles_plain(slab, tile_start, tile_count, bg, tiles_x: int,
+                        tiles_per_frame: int, n_extra: int):
+    """Plain PyTorch version of the forward kernel: every tile at once,
+    CHUNK entries per step, front to back with prefix products (the Pallas
+    kernel's formulation). Returns color (T, 256, 3+X), aux (T, 256, 12)."""
+    kernels.COUNTS["tile_forward_plain"] += 1
+    nt = tile_start.shape[0]
+    dev = slab.device
+    nchan = 3 + n_extra
+    pxf, pyf = _pixel_centers(nt, tiles_x, tiles_per_frame, dev)
+    pxf, pyf = pxf[:, None, :], pyf[:, None, :]
+    zeros = torch.zeros((nt, TILE * TILE), device=dev)
+    t_c, t_last = zeros + 1.0, zeros + 1.0
+    col = torch.zeros((nt, TILE * TILE, nchan), device=dev)
+    d_acc, s1, s2, med_d, med_w, ncon = (zeros.clone() for _ in range(6))
+    nrm = torch.zeros((nt, TILE * TILE, 3), device=dev)
+    chan = torch.tensor(list(range(RGB, RGB + 3)) + list(range(EXTRA, EXTRA + n_extra)),
+                        device=dev)
+    k = torch.arange(CHUNK, device=dev)
+    max_count = int(tile_count.max()) if nt else 0
+    for base in range(0, max_count, CHUNK):
+        rank = base + k
+        valid = rank[None, :] < tile_count[:, None]
+        idx = torch.clamp(tile_start[:, None].long() + rank[None, :], max=slab.shape[0] - 1)
+        rows = slab[idx]  # (T, K, 32)
+        r = splat_response(rows, pxf, pyf)
+        alpha = torch.clamp(r["alpha_raw"], max=common.ALPHA_CLAMP)
+        ok = (r["pz_ok"] & (r["depth"] >= common.NEAR_PLANE)
+              & (alpha >= common.ALPHA_EPS) & valid[..., None])
+        alpha = torch.where(ok, alpha, 0.0)
+        depth = torch.where(ok, r["depth"], 0.0)
+        cp = torch.cumprod(1.0 - alpha, dim=1)
+        t_incl = t_c[:, None, :] * cp
+        include = t_incl >= common.T_EARLY_STOP
+        t_prefix = t_c[:, None, :] * torch.cat([torch.ones_like(cp[:, :1]), cp[:, :-1]], 1)
+        w = alpha * t_prefix * include
+        col = col + torch.einsum("tkp,tkc->tpc", w, rows[..., chan])
+        nrm = nrm + torch.einsum("tkp,tkc->tpc", w, rows[..., NRM:NRM + 3])
+        d_acc = d_acc + torch.sum(w * depth, 1)
+        m = ndc_depth(torch.clamp(depth, min=1e-6))
+        s1 = s1 + torch.sum(w * m, 1)
+        s2 = s2 + torch.sum(w * m * m, 1)
+        cand = (w > 0) & (t_prefix > 0.5)
+        last = torch.amax(torch.where(cand, k[None, :, None], -1), dim=1)
+        has = last >= 0
+        sel = torch.clamp(last, min=0)[:, None, :]
+        med_d = torch.where(has, torch.gather(depth, 1, sel)[:, 0], med_d)
+        med_w = torch.where(has, torch.gather(w, 1, sel)[:, 0], med_w)
+        t_c = t_c * cp[:, -1]
+        t_last = torch.amin(torch.where(include, t_incl, t_last[:, None, :]), dim=1)
+        ncon = torch.maximum(
+            ncon, torch.amax(torch.where(w > 0, (rank + 1.0)[None, :, None], 0.0), dim=1))
+    color = col + t_last[..., None] * bg[:nchan]
+    distort = s2 * (1.0 - t_last) - s1 * s1
+    aux = torch.stack([d_acc, 1.0 - t_last, nrm[..., 0], nrm[..., 1], nrm[..., 2],
+                       med_d, distort, med_w, t_last, ncon, s1, s2], dim=-1)
+    return color, aux
+
+
+def forward_tiles(slab, tile_start, tile_count, bg, tiles_x: int,
+                  tiles_per_frame: int, n_extra: int):
+    """Forward compositor over T = tile_start.shape[0] (frame, tile) blocks.
+
+    slab (E, 32) f32; tile_start / tile_count (T,) int32, segments inside
+    the slab; bg (3 + n_extra,) f32. Returns color (T, 256, 3 + n_extra) and
+    aux (T, 256, 12). CPU tensors run the plain version; CUDA tensors launch
+    the kernel, or this raises."""
+    if slab.device.type == "cpu":
+        return forward_tiles_plain(slab, tile_start, tile_count, bg, tiles_x,
+                                   tiles_per_frame, n_extra)
+    if slab.device.type != "cuda":
+        raise ValueError(f"no tile_forward kernel for device {slab.device}")
+    dev = slab.device
+    nt = tile_start.shape[0]
+    nchan = 3 + n_extra
+    if not 0 <= n_extra <= MAX_EXTRA:
+        raise ValueError(f"n_extra must be in [0, {MAX_EXTRA}], got {n_extra}")
+    kernels.check_tensor("slab", slab, dev)
+    if slab.dim() != 2 or slab.shape[1] != SLAB_WIDTH:
+        raise ValueError(f"slab must be (E, {SLAB_WIDTH}), got {tuple(slab.shape)}")
+    kernels.check_tensor("tile_start", tile_start, dev, (nt,), torch.int32)
+    kernels.check_tensor("tile_count", tile_count, dev, (nt,), torch.int32)
+    kernels.check_tensor("bg", bg, dev, (nchan,))
+    color = torch.empty((nt, TILE * TILE, nchan), dtype=torch.float32, device=dev)
+    aux = torch.empty((nt, TILE * TILE, N_AUX), dtype=torch.float32, device=dev)
+    lib = kernels.library()
+    rc = lib.vidu4d_tile_forward(
+        slab.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
+        bg.data_ptr(), color.data_ptr(), aux.data_ptr(), nt, tiles_x,
+        tiles_per_frame, n_extra, kernels.stream_ptr(dev),
+    )
+    kernels.check_launch(rc, "tile_forward")
+    kernels.COUNTS["tile_forward"] += 1
+    return color, aux
