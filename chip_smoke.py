@@ -5,28 +5,40 @@
 Drives the port's main path, the Stage-3 surfel training step
 (`vidu4d_tpu_torch.engine.gs4d_trainer.Stage3Trainer.train_step`), at the
 workload `bench.py` times: 200k surfels, 256x256, 2 frames per step, SH
-degree 3, 25 bones, in the configuration
-``--fg_motion gs-bob --nogs_optim_warp --rgb_loss_only --flow_wt 0``.
-Weights are random from a seed; the data is the synthetic database of
-`tests/helpers.make_fake_db`.
+degree 3, 25 bones, 16-dim registration features, in the JAX trainer's
+default configuration (``--fg_motion gs-bob``: warp AdamW, pair flow as 2
+extra kernel channels, cycle/skin regularisers, feature reprojection; the
+2DGS normal and distortion terms in the last steps, with lambda_dist
+MAIN_LAMBDA_DIST). Then the reduced configuration
+(``--nogs_optim_warp --rgb_loss_only --flow_wt 0``) as a second path, at
+the same width and a smaller depth. Weights are random from a seed; the
+data is the synthetic database of `tests/helpers.make_fake_db`.
 
 Phases (any failed check raises, so the exit code is non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the kernels from vidu4d_tpu_torch/csrc with nvcc (timed);
+  2. build the kernels from vidu4d_tpu_torch/csrc with nvcc, one process
+     per source in parallel (timed);
   3. hold each kernel against its plain PyTorch version on seeded scenes:
      64^2 and 256^2, 2 folded frames, 0 and 2 extra channels, a deep chain
      of 24k splats over one tile, and entry_cap below the entry count;
   4. one small step (64^2, 4k surfels) on the card vs the same step on the
-     CPU (plain versions), from the same state and batch;
+     CPU (plain versions), from the same state and batch, in the default
+     configuration, without and with the 2DGS terms: every loss, gnorm,
+     the surfel and deformer gradients and the deformer after its AdamW
+     update;
   5. build the main trainer, set the intrinsics to the pixel-true prior and
      place the cloud through the warp on one batch (as bench.py does; every
      step then trains on that batch, as bench.py's timed steps do); require
      >= 50% of the surfels valid in each frame;
   6. compare the kernels with their plain versions at the main path's
-     shapes and time both (CUDA events, plain/kernel/kernel/plain);
-  7. reset the launch counters, run 2 warm-up + 8 timed steps, read the
-     counters: both kernels must have launched and no plain version run;
-     loss and gnorm must be finite.
+     shapes (2 flow channels, random cotangents on every channel) and time
+     both (CUDA events, plain/kernel/kernel/plain);
+  7. main path: reset the launch counters, run 2 warm-up + 8 timed steps,
+     then 2 steps with the 2DGS terms, read the counters: both kernels must
+     have launched and no plain version run; every loss term of the
+     configuration present and finite, gnorm finite, the deformer moved by
+     its AdamW;
+  8. reduced path: the same at 2 warm-up + 4 timed steps.
 The last two lines are a JSON object of per-kernel results and
 {"ok": true, "device": {...}}.
 
@@ -42,8 +54,14 @@ Tolerances (kernel vs plain version, same inputs, float32):
     with pixel coordinates and are orders of magnitude above the opacity,
     colour, normal and extra columns; the floor covers columns whose
     per-pixel terms cancel in the sum.
-Whole small step, card vs CPU: losses and gnorm to 1e-4 / 1e-3 relative,
-surfel gradients to 5e-3 * max |g| (see STEP_GRAD_REL_TOL).
+Whole small step, card vs CPU: each loss to 1e-3 relative + 1e-8 (the
+cycle term is a difference of nearly equal points), gnorm 1e-3 relative;
+gradients of each surfel field and deformer parameter to STEP_GRAD_REL_TOL
+* its max |g| + 1e-5 * the largest max |g| of its group (terms that cancel
+leave only rounding); deformer parameters after the first AdamW update
+within 2 lr x multiplier (Adam's first step is ~lr * g / |g|, which flips
+sign where g is near 0), and to 1e-6 + 1e-3 of that where |g| > 1e-2
+max |g|.
 """
 
 from __future__ import annotations
@@ -59,6 +77,15 @@ import time
 import numpy as np
 
 MAIN_SURFELS, MAIN_RES = 200_000, 256  # the bench.py workload
+MAIN_LAMBDA_DIST = 100.0  # distortion weight of the steps with the 2DGS terms
+MAIN_STEPS = (2, 8, 2)  # warm-up, timed, then with the 2DGS terms
+REDUCED_STEPS = (2, 4)  # warm-up, timed
+# the reduced configuration: no warp AdamW, rgb/depth/mask losses only, no flow
+REDUCED = {"gs_optim_warp": False, "rgb_loss_only": True, "flow_wt": 0.0}
+# the loss terms of the default configuration (+ the 2DGS ones)
+DEFAULT_TERMS = {"rgb", "flow", "depth", "mask", "feat_reproj", "reg_deform_cyc",
+                 "reg_delta_skin", "reg_skin_entropy"}
+REG_2DGS_TERMS = {"normal_loss", "dist_loss"}
 FWD_TOL = 5e-4
 DISCONT_AGREE = 0.999
 BWD_REL_TOL = 1e-3
@@ -67,6 +94,8 @@ BWD_FLOOR = 1e-6
 # by the rendered alpha, so pixels of small alpha scale rounding differences
 # by depth / alpha^2, and the warp's reductions sum in another order
 STEP_GRAD_REL_TOL = 5e-3
+STEP_GRAD_FLOOR = 1e-5
+STEP_LOSS_REL_TOL, STEP_LOSS_ABS_TOL = 1e-3, 1e-8
 
 
 def log(msg: str) -> None:
@@ -280,7 +309,11 @@ def load_make_fake_db():
     return mod.make_fake_db
 
 
-def build_trainer(tmp, device, surfels, res, frames=2):
+def build_trainer(tmp, device, surfels, res, frames=2, reduced=False):
+    """The bench.py workload through the port's trainer: the default
+    configuration (or the reduced one), pixel-true intrinsics, a cloud
+    placed through the warp on one batch, 16-dim registration features.
+    Returns (trainer, that batch)."""
     import torch
 
     from vidu4d_tpu_torch.engine.gs4d_trainer import Stage3Trainer
@@ -294,8 +327,8 @@ def build_trainer(tmp, device, surfels, res, frames=2):
         "train_res": res, "pixels_per_image": -1, "imgs_per_gpu": frames // 2,
         "fg_motion": "gs-bob", "gs_capacity": surfels, "gs_init_samples": surfels,
         "sh_degree": 3, "raster_impl": "pallas_grad", "raster_span_cap": 4,
-        "num_rounds": 60, "iters_per_round": 200,
-        "gs_optim_warp": False, "rgb_loss_only": True, "flow_wt": 0.0,
+        "num_rounds": 60, "iters_per_round": 200, "lambda_dist": MAIN_LAMBDA_DIST,
+        **(REDUCED if reduced else {}),
     }
     trainer = Stage3Trainer(opts, device)
     n_frames = int(np.asarray(trainer.frame_info.frame_offset)[-1])
@@ -317,17 +350,19 @@ def build_trainer(tmp, device, surfels, res, frames=2):
     return trainer, batch
 
 
-def small_step_vs_cpu(tmp):
-    """One step at 64^2 / 4k surfels on the card (kernels) and on the CPU
-    (plain versions) from the same state and batch: the port's own
-    reference on a small input."""
+def small_step_vs_cpu(tmp, use_2dgs_reg):
+    """One step at 64^2 / 4k surfels in the default configuration on the
+    card (kernels) and on the CPU (plain versions) from the same state and
+    batch: the port's own reference on a small input."""
     import torch
 
+    from vidu4d_tpu_torch.engine.optim import lr_multiplier
     from vidu4d_tpu_torch.models.gaussian.surfels import SurfelState, SurfelParams
     from vidu4d_tpu_torch.models.gaussian.optimizer import gs_adam_init
 
-    cpu, batch = build_trainer(os.path.join(tmp, "small_cpu"), "cpu", 4096, 64)
-    gpu, _ = build_trainer(os.path.join(tmp, "small_gpu"), "cuda", 4096, 64)
+    tag = f"2dgs{int(use_2dgs_reg)}"
+    cpu, batch = build_trainer(os.path.join(tmp, f"small_cpu_{tag}"), "cpu", 4096, 64)
+    gpu, _ = build_trainer(os.path.join(tmp, f"small_gpu_{tag}"), "cuda", 4096, 64)
     gpu.deformer.load_state_dict(cpu.deformer.state_dict())
     s = cpu.surfels
     gpu.surfels = SurfelState(
@@ -336,31 +371,96 @@ def small_step_vs_cpu(tmp):
         alive=s.alive.cuda(), max_radii2d=s.max_radii2d.cuda(),
         grad_accum=s.grad_accum.cuda(), denom=s.denom.cuda())
     gpu.gs_adam = gs_adam_init(gpu.surfels.params)
-    m_cpu = cpu.train_step(batch)
-    m_gpu = gpu.train_step({k: v.cuda() for k, v in batch.items()})
+    m_cpu = cpu.train_step(batch, use_2dgs_reg=use_2dgs_reg)
+    m_gpu = gpu.train_step({k: v.cuda() for k, v in batch.items()},
+                           use_2dgs_reg=use_2dgs_reg)
     torch.cuda.synchronize()
-    out = {}
-    for k, tol in (("total", 1e-4), ("rgb", 1e-4), ("mask", 1e-4), ("depth", 1e-3),
-                   ("gnorm", 1e-3)):
+    out, bad = {}, []
+    terms = DEFAULT_TERMS | (REG_2DGS_TERMS if use_2dgs_reg else set())
+    if not terms <= set(m_cpu) or set(m_cpu) != set(m_gpu):
+        raise AssertionError(f"small step: loss terms cpu {sorted(m_cpu)} gpu "
+                             f"{sorted(m_gpu)}, expected {sorted(terms)}")
+    for k in sorted(terms | {"total", "gnorm"}):
         a, b = float(m_cpu[k]), float(m_gpu[k])
-        rel = abs(a - b) / max(abs(a), 1e-12)
-        out[k] = {"cpu": a, "gpu": b, "rel": rel}
-        if not rel <= tol:
-            raise AssertionError(f"small step: {k} cpu={a} gpu={b} rel={rel} > {tol}")
-    # surfel gradients (kept on the leaves after the step): the first Adam
-    # step moves every param by ~lr * sign(g), so compare g itself
-    bad = []
-    for f in ("xyz", "opacity", "features_dc", "scaling", "rotation"):
-        gc = getattr(cpu.surfels.params, f).grad
-        gg = getattr(gpu.surfels.params, f).grad.cpu()
-        err, gmax = float((gc - gg).abs().max()), float(gc.abs().max())
-        out[f"grad_{f}"] = {"max_abs_err": err, "max_abs_g": gmax}
-        if not err <= STEP_GRAD_REL_TOL * gmax:
-            bad.append(f)
-    log(f"[small step cpu-vs-gpu] {json.dumps(out)}")
+        rel, floor = (1e-3, 0.0) if k == "gnorm" else (STEP_LOSS_REL_TOL, STEP_LOSS_ABS_TOL)
+        out[k] = {"cpu": a, "gpu": b, "rel": abs(a - b) / max(abs(a), 1e-30)}
+        if not (np.isfinite(b) and abs(a - b) <= rel * abs(a) + floor):
+            bad.append(k)
+    # gradients (kept on the leaves after the step); the first Adam step
+    # moves every param by ~lr * sign(g), so compare g itself
+    groups = [("surfel", [(f, getattr(cpu.surfels.params, f).grad,
+                           getattr(gpu.surfels.params, f).grad)
+                          for f in ("xyz", "opacity", "features_dc", "scaling",
+                                    "rotation", "regist_feat")]),
+              ("deformer", [(k, p.grad, dict(gpu.deformer.named_parameters())[k].grad)
+                            for k, p in cpu.deformer.named_parameters()
+                            if p.grad is not None])]
+    for group, items in groups:
+        g_all = max(float(gc.abs().max()) for _, gc, _ in items)
+        worst = (0.0, "")
+        for name, gc, gg in items:
+            err = float((gc - gg.cpu()).abs().max())
+            bound = STEP_GRAD_REL_TOL * float(gc.abs().max()) + STEP_GRAD_FLOOR * g_all
+            if not err <= bound:
+                bad.append(f"grad {name}")
+            worst = max(worst, (err / bound, name))
+        out[f"{group}_grad_worst_share_of_bound"] = {"share": worst[0], "name": worst[1]}
+    # the deformer after its first AdamW update
+    lr0 = cpu.warp_opt.schedule(0)
+    gpu_params = dict(gpu.deformer.named_parameters())
+    worst = 0.0
+    for k, p in cpu.deformer.named_parameters():
+        bound = 2 * lr0 * lr_multiplier(k)
+        diff = (p.detach() - gpu_params[k].detach().cpu()).abs()
+        g = cpu.warp_opt.mu[k].abs()
+        big = g > 1e-2 * g.max()
+        ok = float(diff.max()) <= bound + 1e-6 and (
+            not bool(big.any()) or float(diff[big].max()) <= 1e-6 + 1e-3 * bound)
+        worst = max(worst, float(diff.max()) / bound)
+        if not ok:
+            bad.append(f"param {k}")
+    out["deformer_param_diff_over_2lr"] = worst
+    log(f"[small step cpu-vs-gpu 2dgs={use_2dgs_reg}] {json.dumps(out)}")
     if bad:
-        raise AssertionError(f"small step: gradients of {bad} differ beyond "
-                             f"{STEP_GRAD_REL_TOL} * max|g|")
+        raise AssertionError(f"small step (2dgs={use_2dgs_reg}): {bad} differ beyond "
+                             f"their tolerance")
+
+
+def run_steps(trainer, batch, phases, label):
+    """Run (n_steps, use_2dgs_reg, timed) phases on one batch with the launch
+    counters from 0; check losses, gnorm and counters. Returns (step_ms of
+    the timed steps, counters, metrics of the last step of each phase)."""
+    import torch
+
+    from vidu4d_tpu_torch import kernels
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    step_ms, last = [], []
+    for n_steps, reg, timed in phases:
+        for _ in range(n_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = trainer.train_step(batch, use_2dgs_reg=reg)
+            torch.cuda.synchronize()
+            if timed:
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            bad = [k for k, v in metrics.items() if not np.isfinite(float(v))]
+            if bad:
+                raise AssertionError(f"[{label}] non-finite {bad}: {metrics}")
+        last.append({k: float(v) for k, v in metrics.items()})
+    counts = dict(kernels.COUNTS)
+    for m in last:
+        log(f"[steps {label}] metrics {json.dumps(m)}")
+    log(f"[steps {label}] step_ms {json.dumps([round(x, 3) for x in step_ms])} "
+        f"median {float(np.median(step_ms)):.3f} ms "
+        f"peak_mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[counts {label}] {json.dumps(counts)}")
+    if counts["tile_forward"] < 1 or counts["tile_backward"] < 1:
+        raise AssertionError(f"[{label}] a kernel of the path never launched: {counts}")
+    if counts["tile_forward_plain"] or counts["tile_backward_plain"]:
+        raise AssertionError(f"[{label}] a plain version ran on the path: {counts}")
+    return step_ms, counts, last
 
 
 def main() -> int:
@@ -393,7 +493,8 @@ def main() -> int:
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        small_step_vs_cpu(tmp)
+        small_step_vs_cpu(tmp, use_2dgs_reg=False)
+        small_step_vs_cpu(tmp, use_2dgs_reg=True)
 
         t0 = time.perf_counter()
         trainer, batch = build_trainer(os.path.join(tmp, "main"), "cuda", MAIN_SURFELS,
@@ -404,38 +505,48 @@ def main() -> int:
         with torch.no_grad():
             main_batch, _ = trainer.render_inputs(batch)
         diag = scene_diag(main_batch)
-        log(f"[scene] {json.dumps(diag)} entry_cap {trainer.raster_cfg.entry_cap}")
+        log(f"[scene] {json.dumps(diag)} entry_cap {trainer.raster_cfg.entry_cap} "
+            f"n_extra {main_batch['n_extra']}")
         if min(diag["valid"]) < 0.5 * MAIN_SURFELS:
             raise AssertionError(f"degenerate scene, < 50% surfels valid: {diag}")
+        if main_batch["n_extra"] != 2:
+            raise AssertionError(f"the main path renders {main_batch['n_extra']} extra "
+                                 "channels, expected the 2 flow channels")
 
         # the kernels at the main path's shapes: check and time
-        main_cmp = compare_kernels(main_batch, rng, "main path 200k 256x256 2 frames",
+        main_cmp = compare_kernels(main_batch, rng, "main path 200k 256x256 2 frames X=2",
                                    timed=True)
         del main_batch
 
-        # the main path: counters from 0, warm-up + timed steps
-        kernels.reset_counts()
-        step_ms, metrics = [], None
-        for i in range(10):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            metrics = trainer.train_step(batch)
-            torch.cuda.synchronize()
-            if i >= 2:
-                step_ms.append((time.perf_counter() - t0) * 1e3)
-        counts = dict(kernels.COUNTS)
-        m = {k: float(v) for k, v in metrics.items()}
-        log(f"[steps] metrics of the last step {json.dumps(m)}")
-        log(f"[steps] step_ms {json.dumps([round(x, 3) for x in step_ms])} "
-            f"median {float(np.median(step_ms)):.3f} ms "
-            f"peak_mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        log(f"[counts] {json.dumps(counts)}")
-        if not (np.isfinite(m["total"]) and np.isfinite(m["gnorm"])):
-            raise AssertionError(f"non-finite loss or gnorm: {m}")
-        if counts["tile_forward"] < 1 or counts["tile_backward"] < 1:
-            raise AssertionError(f"a kernel of the path never launched: {counts}")
-        if counts["tile_forward_plain"] or counts["tile_backward_plain"]:
-            raise AssertionError(f"a plain version ran on the main path: {counts}")
+        # the main path, default configuration
+        before = {k: p.detach().clone() for k, p in trainer.deformer.named_parameters()}
+        warm, timed, reg = MAIN_STEPS
+        step_ms, counts, last = run_steps(
+            trainer, batch, [(warm, False, False), (timed, False, True), (reg, True, False)],
+            "main")
+        for m, terms in ((last[1], DEFAULT_TERMS), (last[2], DEFAULT_TERMS | REG_2DGS_TERMS)):
+            if not terms <= set(m):
+                raise AssertionError(f"missing loss terms {sorted(terms - set(m))}: {m}")
+        moved = [k for k, p in trainer.deformer.named_parameters()
+                 if not torch.equal(p.detach(), before[k])]
+        log(f"[adamw] {len(moved)} of {len(before)} deformer parameters moved in "
+            f"{trainer.warp_opt.count} updates; unmoved: "
+            f"{sorted(set(before) - set(moved))}")
+        if trainer.warp_opt.count != sum(MAIN_STEPS) or len(moved) < 0.9 * len(before):
+            raise AssertionError("the warp AdamW did not update the deformer")
+        main_ms = float(np.median(step_ms))
+        del trainer, batch
+        torch.cuda.empty_cache()
+
+        # the reduced configuration at the same width, smaller depth
+        trainer, batch = build_trainer(os.path.join(tmp, "reduced"), "cuda",
+                                       MAIN_SURFELS, MAIN_RES, reduced=True)
+        warm, timed = REDUCED_STEPS
+        red_ms, _, red_last = run_steps(
+            trainer, batch, [(warm, False, False), (timed, False, True)], "reduced")
+        if not {"rgb", "depth", "mask"} <= set(red_last[-1]) or "flow" in red_last[-1]:
+            raise AssertionError(f"reduced path loss terms: {sorted(red_last[-1])}")
+        del trainer, batch
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -453,7 +564,8 @@ def main() -> int:
          "max_abs_err": main_cmp["bwd_max_abs_err"],
          "ms": main_cmp["bwd_ms"], "plain_ms": main_cmp["bwd_plain_ms"]},
     ]}
-    log(f"[summary] {card}: median step {float(np.median(step_ms)):.3f} ms; "
+    log(f"[summary] {card}: median step {main_ms:.3f} ms (default configuration), "
+        f"{float(np.median(red_ms)):.3f} ms (reduced); "
         f"tile_forward {main_cmp['fwd_ms']:.3f} ms (plain {main_cmp['fwd_plain_ms']:.3f}); "
         f"tile_backward {main_cmp['bwd_ms']:.3f} ms (plain {main_cmp['bwd_plain_ms']:.3f})")
     print(json.dumps(result))

@@ -1,9 +1,11 @@
 """Profile the port's Stage-3 step on one CUDA GPU with torch.profiler.
 
-    python3 scripts/profile_torch_step.py
+    python3 scripts/profile_torch_step.py [--reduced]
 
 Builds the chip_smoke.py workload (200k surfels, 256x256, 2 frames;
-calibrated cloud, one fixed batch), warms up, then profiles a few steps.
+calibrated cloud, one fixed batch) in the default configuration (with
+--reduced: --nogs_optim_warp --rgb_loss_only --flow_wt 0), warms up, then
+profiles a few steps.
 Prints the card, the wall time per step, the summed device time per step,
 the device busy share, the top kernels by self device time, and the op
 table.
@@ -11,6 +13,7 @@ table.
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 import tempfile
@@ -27,13 +30,18 @@ def main() -> int:
 
     import chip_smoke
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--reduced", action="store_true",
+                    help="profile --nogs_optim_warp --rgb_loss_only --flow_wt 0")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_step: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(chip_smoke.gpu_name_and_power())
+    print(f"configuration: {'reduced' if args.reduced else 'default'}")
     with tempfile.TemporaryDirectory() as tmp:
         trainer, batch = chip_smoke.build_trainer(tmp, "cuda", chip_smoke.MAIN_SURFELS,
-                                                  chip_smoke.MAIN_RES)
+                                                  chip_smoke.MAIN_RES, reduced=args.reduced)
         for _ in range(3):
             trainer.train_step(batch)
         torch.cuda.synchronize()

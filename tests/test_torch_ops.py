@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_parity import assert_close, t
+from tests.torch_parity import assert_close, grad_parity, t
 from vidu4d_tpu.ops import geometry as jgeom
 from vidu4d_tpu.ops import knn as jknn
 from vidu4d_tpu.ops import numerics as jnum
@@ -27,28 +27,11 @@ from vidu4d_tpu_torch.ops import quaternion as tq
 from vidu4d_tpu_torch.ops import sh as tsh
 
 
-def _grad_parity(jfn, tfn, inputs, atol=1e-6, rtol=1e-5):
-    """Value and gradient (of sum(out * w), w fixed random) parity."""
-    rng = np.random.default_rng(0)
-    jout = jfn(*[jnp.asarray(x) for x in inputs])
-    w = rng.normal(size=np.shape(jout)).astype(np.float32)
-    jgrads = jax.grad(
-        lambda *a: jnp.sum(jfn(*a) * w), argnums=tuple(range(len(inputs)))
-    )(*[jnp.asarray(x) for x in inputs])
-    targs = [t(x, requires_grad=True) for x in inputs]
-    tout = tfn(*targs)
-    assert_close(jout, tout, atol, rtol, "value")
-    (tout * t(w)).sum().backward()
-    for i, (jg, ta) in enumerate(zip(jgrads, targs)):
-        got = ta.grad if ta.grad is not None else torch.zeros_like(ta)  # unused input
-        assert_close(jg, got, atol, rtol, f"grad {i}")
-
-
 def test_safe_norm_parity_and_zero_subgradient():
     rng = np.random.default_rng(1)
     x = rng.normal(size=(6, 3)).astype(np.float32)
     x[2] = 0.0
-    _grad_parity(lambda a: jnp.sum(jnum.safe_norm(a, axis=-1)),
+    grad_parity(lambda a: jnp.sum(jnum.safe_norm(a, axis=-1)),
                  lambda a: tnum.safe_norm(a, dim=-1).sum(), [x])
     z = torch.zeros(4, 3, requires_grad=True)
     tnum.safe_norm(z, dim=-1).sum().backward()
@@ -89,7 +72,7 @@ def test_quaternion_ops(name):
                                       (unit(jnp if m is jq else torch, a), b), c)),
     }
     inputs, get = cases[name]
-    _grad_parity(get(jq), get(tq), inputs, atol=2e-6, rtol=2e-5)
+    grad_parity(get(jq), get(tq), inputs, atol=2e-6, rtol=2e-5)
 
 
 def test_dual_quaternion_skinning_values_and_grads():
@@ -111,7 +94,7 @@ def test_dual_quaternion_skinning_values_and_grads():
                                             return_qt=True)
         return torch.cat([q, tr], -1)
 
-    _grad_parity(jfn, tfn, [qr, qd, pts, logits], atol=1e-5, rtol=1e-5)
+    grad_parity(jfn, tfn, [qr, qd, pts, logits], atol=1e-5, rtol=1e-5)
     warped_j = jq.dual_quaternion_skinning((qr, qd), pts, jax.nn.softmax(logits, -1))
     warped_t = tq.dual_quaternion_skinning((t(qr), t(qd)), t(pts),
                                            torch.softmax(t(logits), -1))
@@ -122,7 +105,7 @@ def test_geometry_intrinsics():
     rng = np.random.default_rng(4)
     k = np.abs(rng.normal(size=(3, 4))).astype(np.float32) + 0.5
     for jf, tf in ((jgeom.K2mat, tgeom.K2mat), (jgeom.K2inv, tgeom.K2inv)):
-        _grad_parity(jf, tf, [k])
+        grad_parity(jf, tf, [k])
     kmat = np.asarray(jgeom.K2mat(k))
     assert_close(jgeom.mat2K(kmat), tgeom.mat2K(t(kmat)), 0.0)
     assert_close(jgeom.Kmatinv(kmat), tgeom.Kmatinv(t(kmat)), 1e-6, 1e-6)
@@ -135,7 +118,7 @@ def test_eval_sh_color(deg):
     sh = rng.normal(size=(2, 40, k, 3)).astype(np.float32) * 0.5
     means = rng.normal(size=(2, 40, 3)).astype(np.float32)
     cam = np.zeros(3, np.float32)
-    _grad_parity(lambda s, m: jsh.eval_sh_color(deg, s, m, jnp.asarray(cam)),
+    grad_parity(lambda s, m: jsh.eval_sh_color(deg, s, m, jnp.asarray(cam)),
                  lambda s, m: tsh.eval_sh_color(deg, s, m, t(cam)),
                  [sh, means], atol=2e-6, rtol=1e-5)
 

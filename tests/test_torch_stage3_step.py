@@ -1,6 +1,7 @@
 """One Stage-3 training step of the port vs the JAX Stage3Trainer, in the
-port's configuration (--fg_motion gs-bob --nogs_optim_warp --rgb_loss_only
---flow_wt 0), from the same converted parameters and the same batch.
+reduced configuration (--fg_motion gs-bob --nogs_optim_warp --rgb_loss_only
+--flow_wt 0), from the same converted parameters and the same batch. The
+default configuration is held in tests/test_torch_stage3_full_step.py.
 
 The JAX step runs its CPU backend (raster_impl="tiles") with a per-tile
 budget above the densest tile, so it composites every entry, as the port's
@@ -129,8 +130,9 @@ def test_pair_sampler_matches_pair_batcher(tmp_path):
 
 
 @pytest.mark.parametrize("bad", [
-    {"gs_optim_warp": True}, {"flow_wt": 0.5}, {"rgb_loss_only": False},
-    {"lambda_dssim": 0.2}, {"ngpu": 2}, {"raster_impl": "tiles"},
+    {"gs_init_mesh": "mesh-geo.obj"}, {"single_inst": False},
+    {"fg_motion": "gs-dense"}, {"pixels_per_image": 16}, {"ngpu": 2},
+    {"raster_impl": "tiles"},
 ])
 def test_unported_options_raise(tmp_path, bad):
     db = make_fake_db(tmp_path, num_vids=1, T=8, H=16, W=16)

@@ -55,6 +55,27 @@ def assert_close_per_column(ref, got, rel, floor_rel, name=""):
     assert bad.size == 0, f"{name}: columns {bad}: max|diff| {err[bad]} > {bound[bad]}"
 
 
+def grad_parity(jfn, tfn, inputs, atol=1e-6, rtol=1e-5):
+    """Value and gradient (of sum(out * w), w fixed random) parity of a JAX
+    function and its port on the same numpy inputs."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(0)
+    jout = jfn(*[jnp.asarray(x) for x in inputs])
+    w = rng.normal(size=np.shape(jout)).astype(np.float32)
+    jgrads = jax.grad(
+        lambda *a: jnp.sum(jfn(*a) * w), argnums=tuple(range(len(inputs)))
+    )(*[jnp.asarray(x) for x in inputs])
+    targs = [t(x, requires_grad=True) for x in inputs]
+    tout = tfn(*targs)
+    assert_close(jout, tout, atol, rtol, "value")
+    (tout * t(w)).sum().backward()
+    for i, (jg, ta) in enumerate(zip(jgrads, targs)):
+        got = ta.grad if ta.grad is not None else torch.zeros_like(ta)  # unused input
+        assert_close(jg, got, atol, rtol, f"grad {i}")
+
+
 def make_scene(rng, n=200, spread=0.8, res=64, frames=1):
     """Random surfel cloud in front of a pinhole camera (numpy, float32):
     means (F, P, 3), quats (F, P, 4), scales (P, 2), opacity (P,),

@@ -1,8 +1,9 @@
 """Convert the JAX package's parameters and state into the port's.
 
 Inputs are numpy trees, as ``jax.tree.map(np.asarray, x)`` gives them:
-the flax parameter dict of ``GaussianDeformer``, and the ``SurfelState`` /
-``GsAdamState`` fields (any object with those attributes, or a dict). Such
+the flax parameter dict of ``GaussianDeformer``, the ``SurfelState`` /
+``GsAdamState`` fields (any object with those attributes, or a dict), and
+the optax state of the warp AdamW. Such
 arrays may share memory with live JAX buffers, so every leaf is copied.
 This module imports neither jax nor the JAX package.
 
@@ -84,3 +85,23 @@ def gs_adam_from_jax(state: Any, device) -> GsAdamState:
         ])
     return GsAdamState(count=int(np.asarray(_field(state, "count"))),
                        mu=tree(_field(state, "mu")), nu=tree(_field(state, "nu")))
+
+
+def warp_adamw_from_optax(opt_state: Any, module: nn.Module, device) -> Dict:
+    """The JAX trainer's ``warp_opt_state`` (the optax chain of
+    ``make_stage2_optimizer``, numpy leaves) -> the state of the port's
+    ``WarpAdamW`` over ``module``'s named parameters: {"count", "mu", "nu"}
+    (``WarpAdamW.load_state`` takes it). Moments are renamed and transposed
+    as `flax_to_state_dict` does the parameters."""
+    adam = [s for s in opt_state if hasattr(s, "mu") and hasattr(s, "nu")]
+    if len(adam) != 1:
+        raise ValueError("expected one Adam state in the optax chain")
+    names = {k for k, _ in module.named_parameters()}
+    out = {"count": int(np.asarray(adam[0].count))}
+    for key in ("mu", "nu"):
+        sd = flax_to_state_dict(getattr(adam[0], key))
+        if set(sd) != names:
+            raise ValueError(f"{key} does not match the module's parameters: "
+                             f"{sorted(set(sd) ^ names)}")
+        out[key] = {k: v.to(device) for k, v in sd.items()}
+    return out

@@ -1,30 +1,36 @@
-"""Stage-3 trainer: dynamic Gaussian surfels on a frozen warp
+"""Stage-3 trainer: dynamic Gaussian surfels on a refined warp
 (`vidu4d_tpu/engine/gs4d_trainer.py`).
 
-The port has the step of one configuration so far: ``--fg_motion gs-bob
---nogs_optim_warp --rgb_loss_only --flow_wt 0`` (README "flow_wt 0"). One
-step is
+One step (`train_step`) of the JAX trainer's default configuration
+(``--fg_motion gs-bob``, the JAX defaults of every loss option):
 
   camera/intrinsics MLPs + articulation -> DQ-skinning warp of all P
-  surfels -> SH colour + projection + binning -> the tile kernels over every
-  batch frame -> rgb L1, depth and balanced-mask losses -> backward (the
-  frozen warp is still differentiated, and its gradients count in gnorm)
-  -> densify statistics -> surfel Adam.
+  surfels -> per-surfel pair flow through the pair-flipped frames (2 extra
+  channels) -> SH colour + projection + binning -> the tile kernels over
+  every batch frame -> rgb L1 (+ DSSIM), flow, depth, balanced mask,
+  feature reprojection, cycle/skin regularisers, 2DGS normal + distortion
+  (after 8k steps) -> backward -> densify statistics -> surfel Adam and
+  the warp AdamW.
 
-Options the port does not have yet raise NotImplementedError; none is
-ignored. The round loop, densify/prune hooks, checkpoints and CLIs are
-later work.
+``--nogs_optim_warp``, ``--rgb_loss_only`` and ``--flow_wt 0`` switch the
+corresponding parts off. Options the port does not have yet raise
+NotImplementedError; none is ignored. The round loop, densify/prune hooks,
+checkpoints and CLIs are later work.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from vidu4d_tpu.data import data_utils
 from vidu4d_tpu_torch.engine import losses as losses_mod
+from vidu4d_tpu_torch.engine.optim import WarpAdamW
+from vidu4d_tpu_torch.engine.schedules import progress_schedule
+from vidu4d_tpu_torch.models.fields.skinning import arap_bone_loss
 from vidu4d_tpu_torch.models.gaussian import surfels as sf
 from vidu4d_tpu_torch.models.gaussian.deformable import (
     GaussianDeformer,
@@ -36,7 +42,10 @@ from vidu4d_tpu_torch.models.gaussian.optimizer import (
     gs_adam_update,
 )
 from vidu4d_tpu_torch.ops import geometry as geom
+from vidu4d_tpu_torch.ops.depth_normal import surf_depth_and_normal
+from vidu4d_tpu_torch.ops.image_losses import ssim
 from vidu4d_tpu_torch.ops.numerics import safe_norm
+from vidu4d_tpu_torch.ops.quaternion import dual_quaternion_to_quaternion_translation
 from vidu4d_tpu_torch.ops.rasterize import RasterizeConfig
 from vidu4d_tpu_torch.ops.rasterize.common import compute_tile_rects, project_splats
 from vidu4d_tpu_torch.ops.rasterize.tile_backward import composite_batch
@@ -48,11 +57,6 @@ def check_supported(opts: Dict) -> None:
     port does not have yet."""
     o = opts
     unsupported = [
-        (o.get("gs_optim_warp", True), "gs_optim_warp=True (AdamW warp refinement)"),
-        (o.get("flow_wt", 0.5) > 0, "flow_wt>0 (flow supervision)"),
-        (not o.get("rgb_loss_only", False),
-         "rgb_loss_only=False (cycle/skin/feature-reprojection losses)"),
-        (o.get("lambda_dssim", 0.0) > 0, "lambda_dssim>0 (DSSIM)"),
         ((o.get("ngpu", 1) or 1) > 1, "ngpu>1 (multi-GPU)"),
         (o.get("raster_impl") not in (None, "", "pallas_grad"),
          f"raster_impl={o.get('raster_impl')!r} (the port has the kernel path only)"),
@@ -60,15 +64,31 @@ def check_supported(opts: Dict) -> None:
         (o.get("pixels_per_image", -1) != -1, "pixels_per_image != -1"),
         (bool(o.get("gs_init_mesh")), "gs_init_mesh (mesh surfel init)"),
         (not o.get("single_inst", True), "single_inst=False"),
-        (not o.get("fg_motion", "gs-bob").startswith("gs-"), "non-gs fg_motion"),
+        (o.get("fg_motion", "gs-bob") != "gs-bob",
+         f"fg_motion={o.get('fg_motion')!r} (the port has gs-bob only)"),
     ]
     missing = [what for bad, what in unsupported if bad]
     if missing:
-        raise NotImplementedError(
-            "not ported yet: " + "; ".join(missing)
-            + " (supported: --fg_motion gs-bob --nogs_optim_warp "
-            "--rgb_loss_only --flow_wt 0)"
-        )
+        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+
+
+def uniform_pixel_subsample(n_total: int, n_px: int, train_res: int,
+                            device) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Pick n_px of n_total raster-order pixels (dim 1) with uniform 2D
+    coverage (`gs4d_trainer.py:56`): a strided slice when the stride
+    divides the image width evenly and trims nothing, else a 2D grid of
+    rows and columns."""
+    h = w = train_res
+    st = n_total // n_px
+    if n_total == h * w and n_total % n_px == 0 and 0 < st < w and w % st == 0:
+        return lambda x: x[:, ::st][:, :n_px]
+    nc = min(w, int(math.ceil(math.sqrt(n_px))))
+    nr = min(h, -(-n_px // nc))
+    rows = np.round(np.linspace(0, h - 1, nr)).astype(np.int64)
+    cols = np.round(np.linspace(0, w - 1, nc)).astype(np.int64)
+    idx = (rows[:, None] * w + cols[None, :]).reshape(-1)[:n_px]
+    idx = torch.as_tensor(np.clip(idx, 0, n_total - 1), device=device)
+    return lambda x: x.index_select(1, idx)
 
 
 class PairSampler:
@@ -93,7 +113,8 @@ class Stage3Trainer:
     opts: the JAX trainer's option dict (`bench.py:78-96` builds one).
     Parameters are drawn from a ``torch.Generator`` seeded with
     ``opts["seed"]``; tests replace them with converted JAX parameters
-    (`vidu4d_tpu_torch.convert`)."""
+    (`vidu4d_tpu_torch.convert`). ``current_steps`` counts the steps
+    taken; it switches the 2DGS regularisers on after 8k."""
 
     def __init__(self, opts: Dict, device, datasets=None, data_info=None):
         check_supported(opts)
@@ -142,6 +163,18 @@ class Stage3Trainer:
             regist_feat=opts.get("regist_feat_lr", 2.5e-3),
         )
         self.gs_adam = gs_adam_init(self.surfels.params)
+        # the reference's warp schedule: OneCycle warm-up from lr / 25 over
+        # 2 rounds, x10 for the explicit parameters
+        self.warp_opt = None
+        if opts.get("gs_optim_warp", True):
+            self.warp_opt = WarpAdamW(
+                self.deformer.named_parameters(),
+                learning_rate=opts.get("learning_rate", 5e-4),
+                total_steps=opts.get("num_rounds", 60) * opts.get("iters_per_round", 200),
+                num_rounds=opts.get("num_rounds", 60),
+                intrinsics_lr_mult=opts.get("intrinsics_lr_mult", 1.0),
+            )
+        self.current_steps = 0
         self.raster_cfg = RasterizeConfig(
             span_cap=opts.get("raster_span_cap", 4),
             entry_cap=int(opts.get("raster_entry_cap", 2 ** 19) or 0),
@@ -159,46 +192,118 @@ class Stage3Trainer:
                 for k, v in batch.items()}
 
     def _loss_config(self) -> Dict:
+        """The loss options and their JAX defaults (`gs4d_trainer.py:304`)."""
         o = self.opts
         return {
+            "arap_wt": o.get("arap_wt", 0.0),
+            "train_res": self.res,
             "mask_wt": o.get("mask_wt", 0.1),
             "rgb_wt": o.get("rgb_wt", 0.1),
             "depth_wt": o.get("depth_wt", 1e-4),
+            "flow_wt": o.get("flow_wt", 0.5),
+            # GT-flow magnitudes below this (px) are inside the flow
+            # estimator's noise band and not supervised; 0 disables the gate
+            "flow_noise_px": o.get("flow_noise_px", 2.5),
+            "feat_reproj_wt": o.get("feat_reproj_wt", 5e-2),
+            # pixels per frame of the feature-matching loss (0 = all)
+            "feat_reproj_px": o.get("feat_reproj_px", 8192),
+            "reg_deform_cyc_wt": o.get("reg_deform_cyc_wt", 0.01),
+            # strided surfel subset of the cycle/skin regularisers (1 = all)
+            "cycle_subsample": o.get("cycle_subsample", 4),
+            "reg_delta_skin_wt": o.get("reg_delta_skin_wt", 5e-3),
+            "reg_skin_entropy_wt": o.get("reg_skin_entropy_wt", 5e-4),
+            # read by progress_schedule only
+            "reg_cam_prior_wt": o.get("reg_cam_prior_wt", 0.1),
+            "reg_skel_prior_wt": o.get("reg_skel_prior_wt", 0.1),
+            "reg_gauss_mask_wt": o.get("reg_gauss_mask_wt", 0.01),
+            "reg_eikonal_wt": 0.0,
+            "lambda_dssim": o.get("lambda_dssim", 0.0),
+            "lambda_normal": o.get("lambda_normal", 0.05),
+            "lambda_dist": o.get("lambda_dist", 0.0),
+            "reg_volume_loss_wt": o.get("reg_volume_loss_wt", 0.0),
+            "rgb_loss_only": o.get("rgb_loss_only", False),
         }
+
+    def use_2dgs_reg(self, step: int) -> bool:
+        """Whether the 2DGS normal / distortion terms are on at ``step``
+        (after 8k steps, `gs4d_trainer.py:732-736`)."""
+        w = progress_schedule(self._loss_config(), step)
+        return w["lambda_normal"] > 0 or w["lambda_dist"] > 0
 
     def render_inputs(self, batch: Dict[str, torch.Tensor],
                       dummy: Optional[torch.Tensor] = None):
-        """Warp the surfels to every batch frame and prepare the tile
-        kernels' inputs. Returns (`prepare_surfels_batch` dict,
-        (xyz_cam, rot_cam, intrins))."""
+        """Warp the surfels to every batch frame, compute their pair flow
+        (the 2 extra channels, when flow is supervised) and prepare the tile
+        kernels' inputs (`gs4d_trainer.py:384-452`). Returns
+        (`prepare_surfels_batch` dict, context dict with "samples",
+        "xyz_cam", "rot_cam", "intrins" and "flow_scale")."""
         d = self.deformer
         sp = self.surfels.params
+        alive = self.surfels.alive
+        cfg = self._loss_config()
         samples = d.get_samples(batch)
         xyz_cam, rot_cam, _ = d.warp_surfels(sp.xyz, sf.get_rotation(sp), samples)
         intrins = geom.mat2K(geom.Kmatinv(samples["Kinv"]))
+        extra, flow_scale = None, 1.0
+        if cfg["flow_wt"] > 0 and "flow" in batch:
+            # canonical -> both pair frames, from the store's canonical xyz
+            flow_pw = d.flow_surfels(xyz_cam, samples, sp.xyz[None].expand_as(xyz_cam))
+            # normalise to ~[-1, 1] before compositing; the scale is data,
+            # and dead slots (degenerate projections) do not set it
+            flow_alive = torch.where(alive[None, :, None], flow_pw, 0.0)
+            flow_scale = (torch.amax(torch.abs(flow_alive)) + 1e-6).detach()
+            extra = flow_pw / flow_scale
         prepared = prepare_surfels_batch(
-            sp, self.surfels.alive, xyz_cam, rot_cam, intrins, self.res, self.res,
+            sp, alive, xyz_cam, rot_cam, intrins, self.res, self.res,
             self.opts.get("sh_degree", 3), d.background(), self.raster_cfg,
-            densify_dummy=dummy,
+            densify_dummy=dummy, extra_colors=extra,
         )
-        return prepared, (xyz_cam, rot_cam, intrins)
+        ctx = {"samples": samples, "xyz_cam": xyz_cam, "rot_cam": rot_cam,
+               "intrins": intrins, "flow_scale": flow_scale}
+        return prepared, ctx
 
-    def loss(self, batch: Dict[str, torch.Tensor], dummy: torch.Tensor):
-        """The step's loss (`gs4d_trainer.py:378-617` for this configuration).
+    def loss(self, batch: Dict[str, torch.Tensor], dummy: torch.Tensor,
+             use_2dgs_reg: bool = False):
+        """The step's loss (`gs4d_trainer.py:378-617`).
 
         Returns (total, loss_dict, render output, (xyz_cam, rot_cam,
         intrins) detached for the densify statistics)."""
         cfg = self._loss_config()
         res = self.res
-        prepared, (xyz_cam, rot_cam, intrins) = self.render_inputs(batch, dummy)
+        d = self.deformer
+        sp = self.surfels.params
+        prepared, ctx = self.render_inputs(batch, dummy)
+        samples, xyz_cam, intrins = ctx["samples"], ctx["xyz_cam"], ctx["intrins"]
         out = composite_batch(prepared, res, res)
         m = xyz_cam.shape[0]
         img = lambda x: x.reshape(m, res, res, -1)
         gt_rgb, gt_mask, vis2d = img(batch["rgb"]), img(batch["mask"]), img(batch["vis2d"])
+        rgb_out = out.color[..., :3]
 
         loss_dict = {}
-        loss_dict["rgb"] = torch.mean(torch.abs(out.color[..., :3] - gt_rgb) * vis2d)
+        # rgb: L1 on vis2d pixels, + DSSIM against the masked GT
+        loss_dict["rgb"] = (1.0 - cfg["lambda_dssim"]) * torch.mean(
+            torch.abs(rgb_out - gt_rgb) * vis2d)
+        if cfg["lambda_dssim"] > 0:
+            ssim_val = ssim(rgb_out.permute(0, 3, 1, 2),
+                            (gt_rgb * gt_mask * vis2d).permute(0, 3, 1, 2))
+            loss_dict["rgb_ssim"] = cfg["lambda_dssim"] * torch.mean(1 - ssim_val)
         maskfg_vis = gt_mask * vis2d
+        if prepared["n_extra"]:  # the 2 flow channels
+            # composited surfel flow vs GT: uncertainty-gated, fg-masked,
+            # SNR-gated, in units of the image width
+            flow_img = out.color[..., 3:5] * ctx["flow_scale"]
+            gt_flow = img(batch["flow"])
+            uct_ok = (img(batch["flow_uct"]) > 0).to(flow_img.dtype)
+            noise_px = cfg["flow_noise_px"]
+            snr_w = 1.0
+            if noise_px > 0:
+                snr_w = torch.clamp(safe_norm(gt_flow, dim=-1, keepdim=True) / noise_px
+                                    - 1.0, 0.0, 1.0)
+            flow_l = safe_norm(flow_img - gt_flow, dim=-1, keepdim=True)
+            loss_dict["flow"] = (losses_mod.nonzero_mean(flow_l * snr_w * uct_ok
+                                                         * maskfg_vis)
+                                 / cfg["train_res"]) * cfg["flow_wt"]
         if cfg["depth_wt"] > 0 and "depth" in batch:
             depth_img = (out.depth / torch.clamp(out.alpha, min=1e-6))[..., None]
             depth_l = torch.abs(depth_img - img(batch["depth"]))
@@ -208,17 +313,75 @@ class Stage3Trainer:
         mask_loss = ((out.alpha[..., None] - gt_mask) ** 2) * balance * vis2d
         is_det = batch["is_detected"].reshape(-1, 1, 1, 1)
         loss_dict["mask"] = losses_mod.nonzero_mean(mask_loss * is_det)
-        loss_dict["rgb"] = loss_dict["rgb"] * cfg["rgb_wt"]
-        loss_dict["mask"] = loss_dict["mask"] * cfg["mask_wt"]
+
+        if not cfg["rgb_loss_only"]:
+            # feature reprojection on a uniform pixel subgrid of each frame
+            if "feature" in samples and sp.regist_feat.shape[-1] > 0:
+                feat_px = samples["feature"]
+                hxy_px = batch["hxy"][..., :2]
+                maskfg_px = batch["mask"]
+                n_px = int(cfg["feat_reproj_px"] or 0)
+                if 0 < n_px < feat_px.shape[1]:
+                    sub = uniform_pixel_subsample(feat_px.shape[1], n_px,
+                                                  int(cfg["train_res"]), feat_px.device)
+                    feat_px, hxy_px, maskfg_px = sub(feat_px), sub(hxy_px), sub(maskfg_px)
+                matches = d.global_match(feat_px, sp.regist_feat, sp.xyz)
+                xy_reproj, _ = d.forward_project(matches, samples)
+                reproj = safe_norm(xy_reproj - hxy_px, dim=-1, keepdim=True)
+                loss_dict["feat_reproj"] = losses_mod.nonzero_mean(
+                    reproj * maskfg_px.to(reproj.dtype)) / cfg["train_res"]
+
+            # cycle + skin regularisers on a strided 1/cycle_subsample subset
+            sub_c = max(int(cfg["cycle_subsample"] or 1), 1)
+            cyc = d.cycle_loss(xyz_cam[:, ::sub_c], sp.xyz[::sub_c], samples)
+            loss_dict["reg_deform_cyc"] = losses_mod.nonzero_mean(cyc["cyc_dist"])
+            if "delta_skin" in cyc:
+                loss_dict["reg_delta_skin"] = losses_mod.nonzero_mean(cyc["delta_skin"])
+            loss_dict["reg_skin_entropy"] = losses_mod.nonzero_mean(cyc["skin_entropy"])
+
+            # 2DGS normal / distortion regularisers
+            if use_2dgs_reg and cfg["lambda_normal"] > 0:
+                _, surf_norm = surf_depth_and_normal(
+                    out.depth / torch.clamp(out.alpha, min=1e-6), out.median_depth,
+                    out.alpha, intrins)
+                n_err = 1.0 - torch.sum(out.normal * surf_norm, dim=-1)
+                loss_dict["normal_loss"] = cfg["lambda_normal"] * torch.mean(n_err)
+            if use_2dgs_reg and cfg["lambda_dist"] > 0:
+                loss_dict["dist_loss"] = cfg["lambda_dist"] * torch.mean(out.distortion)
+
+            if cfg["reg_volume_loss_wt"] > 0:
+                loss_dict["reg_volume_loss"] = cfg["reg_volume_loss_wt"] * torch.mean(
+                    torch.prod(sf.get_scaling(sp), dim=1) * self.surfels.alive)
+
+            # ARAP rigidity of the bone centers between the pair frames
+            if cfg["arap_wt"] > 0:
+                _, bones = dual_quaternion_to_quaternion_translation(
+                    samples["t_articulation"])
+                loss_dict["arap"] = cfg["arap_wt"] * arap_bone_loss(
+                    bones[0], bones[1 % bones.shape[0]])
+
+        for k, wt_key in (("rgb", "rgb_wt"), ("mask", "mask_wt"),
+                          ("rgb_ssim", "rgb_wt"),
+                          ("feat_reproj", "feat_reproj_wt"),
+                          ("reg_deform_cyc", "reg_deform_cyc_wt"),
+                          ("reg_delta_skin", "reg_delta_skin_wt"),
+                          ("reg_skin_entropy", "reg_skin_entropy_wt")):
+            if k in loss_dict:
+                loss_dict[k] = loss_dict[k] * cfg[wt_key]
         total = sum(loss_dict[k] for k in sorted(loss_dict))
-        warped = (xyz_cam.detach(), rot_cam.detach(), intrins.detach())
+        warped = (xyz_cam.detach(), ctx["rot_cam"].detach(), intrins.detach())
         return total, loss_dict, out, warped
 
-    def train_step(self, batch: Optional[Dict[str, torch.Tensor]] = None) -> Dict:
-        """One training step (`gs4d_trainer.py:621-707`); updates the surfel
-        store and its Adam state in place. Returns a dict of 0-d tensors."""
+    def train_step(self, batch: Optional[Dict[str, torch.Tensor]] = None,
+                   use_2dgs_reg: Optional[bool] = None) -> Dict:
+        """One training step (`gs4d_trainer.py:621-707`): updates the surfel
+        store and its Adam state, and the deformer with the warp AdamW
+        (when ``gs_optim_warp``), in place. ``use_2dgs_reg`` None: from
+        ``current_steps``. Returns a dict of 0-d tensors."""
         if batch is None:
             batch = self._next_batch()
+        if use_2dgs_reg is None:
+            use_2dgs_reg = self.use_2dgs_reg(self.current_steps)
         surf = self.surfels
         sp = surf.params
         res = self.res
@@ -228,7 +391,7 @@ class Stage3Trainer:
             p.grad = None
         dummy = torch.zeros((batch["frameid"].shape[0], surf.capacity, 2),
                             device=self.device, requires_grad=True)
-        total, loss_dict, _, warped = self.loss(batch, dummy)
+        total, loss_dict, _, warped = self.loss(batch, dummy, use_2dgs_reg)
         total.backward()
 
         with torch.no_grad():
@@ -261,6 +424,9 @@ class Stage3Trainer:
                     surf.max_radii2d, torch.amax(torch.where(vis, proj.radius, 0.0), 0)),
             )
             self.gs_adam = gs_adam_update(sgrads, self.gs_adam, sp, self.gs_lrs)
+        if self.warp_opt is not None:
+            self.warp_opt.step()
+        self.current_steps += 1
 
         return {
             "total": total.detach(),

@@ -1,8 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources in ``vidu4d_tpu_torch/csrc/*.cu`` have a plain C interface. On
-first use they are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library under ``vidu4d_tpu_torch/_build/`` (named by a hash of the
+first use they are compiled with ``nvcc`` for Hopper (``sm_90a``), one
+process per source, all at once, and linked into one shared library under ``vidu4d_tpu_torch/_build/`` (named by a hash of the
 sources, so an edited source is never served from a stale build) and loaded
 with ``ctypes``. Nothing is compiled or loaded at import time.
 
@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
     # no FMA contraction: the affine intersection p = A + px*B + py*C
     # cancels large terms, so the kernels round it as the plain versions
     # (separate multiply and add) do
@@ -86,20 +86,33 @@ def build() -> dict:
     if lib.exists():
         return {"path": str(lib), "seconds": 0.0, "cached": True,
                 "ptxas": log.read_text() if log.exists() else ""}
-    tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *map(str, cu)]
+    nvcc = _find_nvcc()
+    stem = BUILD_DIR / f".{lib.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all started together, then one link
+    objs = [Path(f"{stem}.{f.stem}.o") for f in cu]
+    procs = [(subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o),
+                                str(f)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                               text=True), f)
+             for f, o in zip(cu, objs)]
+    report = []
+    for proc, f in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {f.name} ({proc.returncode}):\n{err}")
+        report.append(err)
+    tmp = Path(f"{stem}.so")
+    link = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                           "-o", str(tmp), *map(str, objs)], capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
+    for o in objs:
+        o.unlink()
     os.replace(tmp, lib)
-    log.write_text(proc.stderr)
+    log.write_text("".join(report))
     return {"path": str(lib), "seconds": seconds, "cached": False,
-            "ptxas": proc.stderr}
+            "ptxas": "".join(report)}
 
 
 @functools.lru_cache(maxsize=None)

@@ -44,6 +44,30 @@ def get_bone_coords(xyz: torch.Tensor, bone2obj: DualQuaternion) -> torch.Tensor
     return dual_quaternion_apply(obj2bone, xyz_e)
 
 
+def get_xyz_bone_distance(xyz: torch.Tensor, bone2obj: DualQuaternion) -> torch.Tensor:
+    """Squared distance (..., B) of points (..., 3) to the bone centers
+    (`skinning.py:72`)."""
+    _, center = dual_quaternion_to_quaternion_translation(bone2obj)
+    return torch.sum((xyz[..., None, :] - center) ** 2, dim=-1)
+
+
+def arap_bone_loss(bones_t1: torch.Tensor, bones_t2: torch.Tensor,
+                   k: int = 10) -> torch.Tensor:
+    """As-rigid-as-possible rigidity of bone centers (B, 3) between two
+    frames: keep the distances to each bone's K nearest bones at t1
+    (`skinning.py:92`)."""
+    d1 = torch.sum((bones_t1[:, None] - bones_t1[None]) ** 2, dim=-1)
+    d2 = torch.sum((bones_t2[:, None] - bones_t2[None]) ** 2, dim=-1)
+    b = bones_t1.shape[0]
+    k = min(k, b - 1)
+    big = torch.amax(d1) + 1.0
+    d1_self = d1 + torch.eye(b, dtype=d1.dtype, device=d1.device) * big
+    _, idx = torch.topk(-d1_self, k, dim=1)  # (B, K) nearest neighbours at t1
+    l1 = torch.sqrt(torch.clamp(torch.gather(d1, 1, idx), min=1e-12))
+    l2 = torch.sqrt(torch.clamp(torch.gather(d2, 1, idx), min=1e-12))
+    return torch.mean((l1 - l2) ** 2)
+
+
 def cross_entropy_skin_loss(skin: torch.Tensor) -> torch.Tensor:
     """CE between skin logits and their one-hot argmax (`skinning.py:78`)."""
     log_prob = torch.log_softmax(skin, dim=-1)

@@ -39,18 +39,28 @@ class SkinningWarp(nn.Module):
             torch.full((1,), -math.log(init_beta), device=device))
 
     def forward(self, xyz: torch.Tensor, frame_id: torch.Tensor,
-                inst_id: torch.Tensor, samples_dict: Dict):
-        """Forward warp (rest pose -> frame) of xyz (M, N, D, 3): returns the
-        blended rigid transform (q, t) per point, and an aux dict with
-        'skin_entropy' and 'delta_skin' (M, N, D, 1). The articulations come
-        from ``samples_dict`` ("t_articulation", "rest_articulation"). The
-        JAX module's backward warp and point outputs are not ported yet."""
+                inst_id: torch.Tensor, samples_dict: Dict, backward: bool = False):
+        """Blend-skinning warp of xyz (M, N, D, 3) (`warping.py:197`).
+
+        Forward (rest pose -> frame): se3 = t_art o rest_art^-1, skinning
+        at the rest pose with the mean time code. Backward (frame -> rest
+        pose): se3 = rest_art o t_art^-1, skinning at the frame's pose,
+        conditioned on ``frame_id``. The articulations come from
+        ``samples_dict`` ("t_articulation", "rest_articulation"). Returns
+        the blended rigid transform (q, t) per point, and an aux dict with
+        'skin_entropy' and 'delta_skin' (M, N, D, 1)."""
         t_art = samples_dict["t_articulation"]
         rest_art = samples_dict["rest_articulation"]
-        se3 = dual_quaternion_mul(t_art, dual_quaternion_inverse(rest_art))
-        # skinning at the rest pose, with the mean time code
-        articulation = (rest_art[0][:, None, None], rest_art[1][:, None, None])
-        skin, delta_skin = self.skinning_model(xyz, articulation, None, inst_id)
+        if backward:
+            se3 = dual_quaternion_mul(rest_art, dual_quaternion_inverse(t_art))
+            articulation, skin_frame_id = t_art, frame_id
+        else:
+            se3 = dual_quaternion_mul(t_art, dual_quaternion_inverse(rest_art))
+            articulation, skin_frame_id = rest_art, None
+        # the articulation stays at (M, 1, 1, B, 4): the bone transforms are
+        # computed per bone and broadcast over the points
+        articulation = (articulation[0][:, None, None], articulation[1][:, None, None])
+        skin, delta_skin = self.skinning_model(xyz, articulation, skin_frame_id, inst_id)
         skin_prob = torch.softmax(skin, dim=-1)
         out = dual_quaternion_skinning(se3, xyz, skin_prob, return_qt=True)
         aux = {"skin_entropy": cross_entropy_skin_loss(skin)[..., None]}

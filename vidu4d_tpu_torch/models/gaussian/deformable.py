@@ -1,8 +1,9 @@
-"""Stage-3 dynamic Gaussian surfels: warp module + rendering
-(`vidu4d_tpu/models/gaussian/deformable.py`).
+"""Stage-3 dynamic Gaussian surfels: warp module, warp losses + rendering
+inputs (`vidu4d_tpu/models/gaussian/deformable.py`).
 
 Per-frame forward warp: canonical surfel (x, q_c) -> DQ skinning (q_w, t_w)
 -> field2cam (q_f, t_f):  x_cam = q_f (q_w x + t_w) + t_f,  q_cam = q_f q_w q_c.
+The backward warp (frame -> canonical) feeds the cycle loss and the flow.
 """
 
 from __future__ import annotations
@@ -14,13 +15,19 @@ import torch
 from torch import nn
 
 from vidu4d_tpu.data.frame_info import FrameInfo
+from vidu4d_tpu_torch.models.fields.dyn_nerf import flip_pair
 from vidu4d_tpu_torch.models.fields.mlp import flax_default_init_
 from vidu4d_tpu_torch.models.fields.time_mlp import CameraMLP, IntrinsicsMLP
 from vidu4d_tpu_torch.models.fields.warping import warp_module
 from vidu4d_tpu_torch.models.gaussian import surfels as sf
 from vidu4d_tpu_torch.ops import geometry as geom
 from vidu4d_tpu_torch.ops import sh as sh_ops
-from vidu4d_tpu_torch.ops.quaternion import quaternion_mul, quaternion_translation_apply
+from vidu4d_tpu_torch.ops.numerics import safe_norm
+from vidu4d_tpu_torch.ops.quaternion import (
+    quaternion_mul,
+    quaternion_translation_apply,
+    quaternion_translation_inverse,
+)
 from vidu4d_tpu_torch.ops.rasterize import RasterizeConfig
 from vidu4d_tpu_torch.ops.rasterize.common import project_splats
 from vidu4d_tpu_torch.ops.rasterize.tile_backward import prepare_batch
@@ -49,7 +56,7 @@ class GaussianDeformer(nn.Module):
         frame_id = batch["frameid"]
         kmat = self.intrinsics(frame_id)
         t_art, rest_art = self.warp.articulation.vals_and_mean(frame_id)
-        return {
+        samples = {
             "field2cam": self.camera_mlp(frame_id),
             "frame_id": frame_id,
             "inst_id": batch["dataid"],
@@ -58,23 +65,93 @@ class GaussianDeformer(nn.Module):
             "t_articulation": t_art,
             "rest_articulation": rest_art,
         }
+        if "feature" in batch:
+            samples["feature"] = batch["feature"]
+        return samples
 
     def warp_surfels(self, xyz: torch.Tensor, rotation: torch.Tensor,
                      samples: Dict):
         """Canonical surfels (P, 3), (P, 4) -> camera space at each batch
         frame: xyz_cam (M, P, 3), rot_cam (M, P, 4), aux dict of (M, P, 1)."""
-        m = samples["frame_id"].shape[0]
-        p = xyz.shape[0]
-        xyz_b = xyz[None, :, None, :].expand(m, p, 1, 3)
-        (q_w, t_w), aux = self.warp(xyz_b, samples["frame_id"], samples["inst_id"],
-                                    samples_dict=samples)
-        q_w, t_w = q_w[:, :, 0], t_w[:, :, 0]
-        xyz_t = quaternion_translation_apply(q_w, t_w, xyz_b[:, :, 0])
+        xyz_b = xyz[None].expand(samples["frame_id"].shape[0], *xyz.shape)
+        (q_w, t_w), aux = self._warp_qt(xyz_b, samples)
+        xyz_t = quaternion_translation_apply(q_w, t_w, xyz_b)
         rot_t = quaternion_mul(q_w, rotation[None])
         q_f, t_f = samples["field2cam"]
         xyz_cam = quaternion_translation_apply(q_f[:, None], t_f[:, None], xyz_t)
         rot_cam = quaternion_mul(q_f[:, None], rot_t)
-        return xyz_cam, rot_cam, {k: v[:, :, 0] for k, v in aux.items()}
+        return xyz_cam, rot_cam, aux
+
+    def _warp_qt(self, xyz: torch.Tensor, samples: Dict, backward: bool = False):
+        """The warp's per-point rigid transform (q, t) for points (M, N, 3),
+        each (M, N, 4/3), and its aux dict of (M, N, 1)."""
+        (q, t), aux = self.warp(xyz[:, :, None], samples["frame_id"], samples["inst_id"],
+                                samples_dict=samples, backward=backward)
+        return (q[:, :, 0], t[:, :, 0]), {k: v[:, :, 0] for k, v in aux.items()}
+
+    def _canonicalize(self, xyz_cam: torch.Tensor, samples: Dict):
+        """Camera points (M, N, 3) -> object space -> backward warp: the
+        canonical points (M, N, 3) and the warp's aux dict."""
+        q_i, t_i = quaternion_translation_inverse(*samples["field2cam"])
+        xyz_obj = quaternion_translation_apply(q_i[:, None], t_i[:, None], xyz_cam)
+        (q_b, t_b), aux = self._warp_qt(xyz_obj, samples, backward=True)
+        return quaternion_translation_apply(q_b, t_b, xyz_obj), aux
+
+    def cycle_loss(self, xyz_cam_t: torch.Tensor, xyz_canonical: torch.Tensor,
+                   samples: Dict) -> Dict:
+        """Backward-warp the warped surfels (M, N, 3) and take the L2
+        distance to their canonical points (N, 3) (`deformable.py:147`).
+        Returns {"cyc_dist", "xyz_cycled", "skin_entropy", "delta_skin"}."""
+        xyz_cycled, aux = self._canonicalize(xyz_cam_t, samples)
+        cyc_dist = safe_norm(xyz_cycled - xyz_canonical[None], dim=-1, keepdim=True)
+        return {"cyc_dist": cyc_dist, "xyz_cycled": xyz_cycled, **aux}
+
+    def flow_surfels(self, xyz_cam_t: torch.Tensor, samples: Dict,
+                     xyz_cano: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Point-wise flow (M, P, 2): project the surfels at their frame and,
+        warped through the canonical points, under the pair-flipped frame
+        (`deformable.py:169`). xyz_cano (M, P, 3): the canonical points; if
+        None they come from the backward warp of xyz_cam_t."""
+        if xyz_cano is None:
+            xyz_cano, _ = self._canonicalize(xyz_cam_t, samples)
+        samples_next = dict(samples)
+        for k in ("frame_id", "field2cam", "Kinv", "t_articulation",
+                  "rest_articulation"):
+            samples_next[k] = flip_pair(samples[k])
+        (q_n, t_n), _ = self._warp_qt(xyz_cano, samples_next)
+        xyz_t_next = quaternion_translation_apply(q_n, t_n, xyz_cano)
+        q2, t2 = samples_next["field2cam"]
+        xyz_cam_next = quaternion_translation_apply(q2[:, None], t2[:, None], xyz_t_next)
+        xy0 = geom.pinhole_projection(geom.Kmatinv(samples["Kinv"]), xyz_cam_t)[..., :2]
+        xy1 = geom.pinhole_projection(geom.Kmatinv(samples_next["Kinv"]),
+                                      xyz_cam_next)[..., :2]
+        return xy1 - xy0
+
+    def global_match(self, feat_px: torch.Tensor, regist_feat: torch.Tensor,
+                     xyz_canonical: torch.Tensor, num_candidates: int = 2048
+                     ) -> torch.Tensor:
+        """Soft match of pixel features (..., F) against a strided subset of
+        the surfels' registration features (P, F): the expected canonical
+        point (..., 3) (`deformable.py:216`)."""
+        total = regist_feat.shape[0]
+        k = min(num_candidates, total)
+        stride = max(1, total // k)
+        fc = regist_feat[::stride][:k]
+        xc = xyz_canonical[::stride][:k]
+        score = feat_px.reshape(-1, feat_px.shape[-1]) @ fc.T
+        prob = torch.softmax(score * torch.exp(self.logsigma), dim=-1)
+        return (prob @ xc).reshape(feat_px.shape[:-1] + (3,))
+
+    def forward_project(self, xyz_matches: torch.Tensor, samples: Dict):
+        """Warp matched canonical points (M, N, 3) to their frame and project:
+        returns pixel xy (M, N, 2) and camera points (M, N, 3)
+        (`deformable.py:232`)."""
+        (q_w, t_w), _ = self._warp_qt(xyz_matches, samples)
+        xyz_t = quaternion_translation_apply(q_w, t_w, xyz_matches)
+        q_f, t_f = samples["field2cam"]
+        xyz_cam = quaternion_translation_apply(q_f[:, None], t_f[:, None], xyz_t)
+        xy = geom.pinhole_projection(geom.Kmatinv(samples["Kinv"]), xyz_cam)[..., :2]
+        return xy, xyz_cam
 
     def background(self) -> torch.Tensor:
         if self.learnable_bg:
@@ -94,15 +171,19 @@ def prepare_surfels_batch(
     bg_color: torch.Tensor,  # (3,)
     config: RasterizeConfig,
     densify_dummy: Optional[torch.Tensor] = None,  # (M, P, 2)
+    extra_colors: Optional[torch.Tensor] = None,  # (M, P, X)
 ) -> dict:
     """The tile kernels' inputs for the warped surfels of every batch frame
     (the JAX package's "pallas_grad" path of `render_surfels_batch`,
     `deformable.py:292-321`): SH colour at camera-space view dirs (camera
-    at the origin), projection, binning and packing. `composite_batch` of
-    the result renders the frames."""
+    at the origin) with ``extra_colors`` appended as X more channels,
+    projection, binning and packing. `composite_batch` of the result
+    renders the frames."""
     eye = torch.eye(4, dtype=xyz_cam.dtype, device=xyz_cam.device)
     colors = sh_ops.eval_sh_color(sh_degree, sf.get_features(params)[None], xyz_cam,
                                   torch.zeros(3, dtype=xyz_cam.dtype, device=xyz_cam.device))
+    if extra_colors is not None:
+        colors = torch.cat([colors, extra_colors], dim=-1)
     proj_b = project_splats(xyz_cam, rot_cam, sf.get_scaling(params), eye, intrins,
                             mask=alive, densify_dummy=densify_dummy)
     return prepare_batch(

@@ -1,4 +1,5 @@
-"""Intrinsics tuple <-> matrix helpers (`vidu4d_tpu/ops/geometry.py`)."""
+"""Pinhole projection and intrinsics tuple <-> matrix helpers
+(`vidu4d_tpu/ops/geometry.py`)."""
 
 from __future__ import annotations
 
@@ -36,3 +37,17 @@ def K2inv(K: torch.Tensor) -> torch.Tensor:
 
 def Kmatinv(Kmat: torch.Tensor) -> torch.Tensor:
     return K2inv(mat2K(Kmat))
+
+
+def pinhole_projection(Kmat: torch.Tensor, xyz_cam: torch.Tensor) -> torch.Tensor:
+    """Camera-space points (M, ..., 3) -> homogeneous pixel coordinates
+    (M, ..., 3) under intrinsics (M, 3, 3) (`geometry.py:20`). The
+    denominator is clamped to |z| >= 1e-3 with its sign kept, so a point
+    crossing the camera plane gives finite values and gradients."""
+    shape = xyz_cam.shape
+    Kmat = Kmat.reshape(shape[:1] + (1,) * (len(shape) - 2) + (3, 3))
+    hxy = torch.sum(Kmat * xyz_cam[..., None, :], dim=-1)
+    z = hxy[..., -1:]
+    z_safe = torch.where(z.abs() < 1e-3,
+                         torch.where(z < 0, -1e-3, 1e-3).to(z.dtype), z)
+    return hxy / z_safe
