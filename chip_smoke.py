@@ -20,7 +20,11 @@ Phases (any failed check raises, so the exit code is non-zero):
      per source in parallel (timed);
   3. hold each kernel against its plain PyTorch version on seeded scenes:
      64^2 and 256^2, 2 folded frames, 0 and 2 extra channels, a deep chain
-     of 24k splats over one tile, and entry_cap below the entry count;
+     of 24k splats over one tile (timed), entry_cap below the entry count,
+     and the cases of the kernels' work-item split (items of SEG entries,
+     `chain_batch`): stops on the first and the last entry of an item, a
+     tile of exactly 2 items, an opaque front layer whose later items are
+     dead;
   4. one small step (64^2, 4k surfels) on the card vs the same step on the
      CPU (plain versions), from the same state and batch, in the default
      configuration, without and with the 2DGS terms: every loss, gnorm,
@@ -32,7 +36,10 @@ Phases (any failed check raises, so the exit code is non-zero):
      >= 50% of the surfels valid in each frame;
   6. compare the kernels with their plain versions at the main path's
      shapes (2 flow channels, random cotangents on every channel) and time
-     both (CUDA events, plain/kernel/kernel/plain);
+     both (CUDA events, plain/kernel/kernel/plain); print the tile depths,
+     the work lists (no item longer than SEG, every entry covered once,
+     items within the grid), the (entry, pixel) pairs these inputs need and
+     each kernel's bound (`kernel_bounds`);
   7. main path: reset the launch counters, run 2 warm-up + 8 timed steps,
      then 2 steps with the 2DGS terms, read the counters: both kernels must
      have launched and no plain version run; every loss term of the
@@ -96,6 +103,17 @@ BWD_FLOOR = 1e-6
 STEP_GRAD_REL_TOL = 5e-3
 STEP_GRAD_FLOOR = 1e-5
 STEP_LOSS_REL_TOL, STEP_LOSS_ABS_TOL = 1e-3, 1e-8
+DEEP = "deep chain 24k splats / one tile"
+# FP32 operations per (entry, pixel) pair, counted from the kernels' source
+# (a division or an expf counts as one): the splat response and cull of
+# every pair that needs it; the compositing of an included pair is 29 + 2 X
+# more (forward), its gradient chain and column sums 105 + 4 X (backward)
+OPS_RESPONSE = 33
+# H100 SXM, FP32 outside the tensor cores (data sheet). It counts an FMA as
+# two operations; the kernels build with -fmad=false and issue separate
+# multiplies and adds, so this bound is below what they could reach.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 
 def log(msg: str) -> None:
@@ -156,20 +174,63 @@ def random_scene(rng, n, res, frames, n_extra, device, deep=False):
     return proj, t(colors), t(opac), bg
 
 
-def compare_kernels(batch, rng, name, reps_k=20, reps_p=2, timed=False):
-    """Run both kernels and both plain versions on one prepared batch;
-    check the tolerances; return errors and (optionally) timings."""
+def chain_batch(rng, seg, n_extra, device):
+    """Kernel inputs of one 64x64 frame built row by row, for the cases of
+    the work-item split (items of ``seg`` entries). Each row's response is
+    nearly constant over the tile (A = (0, 0, 1), B and C ~1e-4, so alpha
+    is opacity to 2e-4 and depth = q), which places every pixel's stop:
+      tile 0: stops on the first entry of its second item (rank seg);
+      tile 1: stops on the last entry of its first item (rank seg - 1);
+      tile 2: 2 * seg low-alpha entries, an exact multiple of seg;
+      tile 3: an opaque front layer stops every pixel within its first
+              entries; 3 * seg entries behind it are dead;
+      tile 5: one entry; the other tiles are empty.
+    Returns a dict with the keys of tile_backward.prepare_batch."""
     import torch
 
-    from vidu4d_tpu_torch.ops.rasterize import tile_backward as tb
     from vidu4d_tpu_torch.ops.rasterize import tile_forward as tf
 
-    geo = (batch["tiles_x"], batch["tiles_per_frame"], batch["n_extra"])
-    fw_args = (batch["slab"], batch["tile_start"], batch["tile_count"], batch["bg"])
-    col_k, aux_k = tf.forward_tiles(*fw_args, *geo)
-    torch.cuda.synchronize()
-    col_p, aux_p = tf.forward_tiles_plain(*fw_args, *geo)
-    torch.cuda.synchronize()
+    # T after seg low-alpha entries ~3e-3: the next opaque entry stops
+    a_low = 1.0 - 3e-3 ** (1.0 / seg)
+    alphas = {
+        0: [a_low] * seg + [1.0] + list(rng.uniform(0.01, 0.3, 200)),
+        1: [a_low] * (seg - 1) + [1.0] + list(rng.uniform(0.01, 0.3, 50)),
+        2: list(rng.uniform(0.002, 0.006, 2 * seg)),
+        3: [0.85] * 8 + list(rng.uniform(0.01, 0.5, 3 * seg)),  # stop at rank 4
+        5: [0.5],
+    }
+    tiles_x, tiles_per_frame = 4, 16
+    width = tf.SLAB_WIDTH
+    starts, counts, blocks, offset = [0] * tiles_per_frame, [0] * tiles_per_frame, [], 0
+    for t, al in alphas.items():
+        n = len(al)
+        rows = np.zeros((-(-n // tf.CHUNK) * tf.CHUNK, width))
+        rows[:n, tf.PA + 2] = 1.0
+        rows[:n, tf.PB:tf.PB + 2] = rng.uniform(-1e-4, 1e-4, (n, 2))
+        rows[:n, tf.PC:tf.PC + 2] = rng.uniform(-1e-4, 1e-4, (n, 2))
+        rows[:n, tf.QD] = np.sort(rng.uniform(1.0, 5.0, n))
+        rows[:n, tf.TW2] = rows[:n, tf.QD]
+        rows[:n, tf.E0] = 10.0  # rho2d > rho3d: the 3D branch everywhere
+        rows[:n, tf.OPAC] = al
+        rows[:n, tf.RGB:tf.RGB + 3] = rng.uniform(size=(n, 3))
+        nrm = rng.normal(size=(n, 3))
+        rows[:n, tf.NRM:tf.NRM + 3] = nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)
+        rows[:n, tf.EXTRA:tf.EXTRA + n_extra] = rng.normal(size=(n, n_extra))
+        starts[t], counts[t] = offset, n
+        blocks.append(rows)
+        offset += rows.shape[0]
+    t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+    return dict(slab=t(np.concatenate(blocks)), tile_start=t(starts, torch.int32),
+                tile_count=t(counts, torch.int32), bg=t(rng.uniform(size=3 + n_extra)),
+                tiles_x=tiles_x, tiles_y=4, tiles_per_frame=tiles_per_frame,
+                n_extra=n_extra)
+
+
+def check_forward(plain, kernel, name):
+    """Hold the forward kernel's (color, aux) to its plain version's; return
+    the largest smooth-channel error and the discontinuous channels'
+    agreement."""
+    (col_p, aux_p), (col_k, aux_k) = plain, kernel
     smooth = [i for i in range(12) if i not in (5, 7, 9)]
     fwd_err = max(float((col_k - col_p).abs().max()),
                   float((aux_k[..., smooth] - aux_p[..., smooth]).abs().max()))
@@ -183,6 +244,43 @@ def compare_kernels(batch, rng, name, reps_k=20, reps_p=2, timed=False):
         raise AssertionError(f"[{name}] forward kernel disagrees with its plain "
                              f"version: max_abs_err={fwd_err}, agree={agree}, "
                              f"per channel (color, aux)={per_ch}")
+    return fwd_err, agree
+
+
+def check_backward(g_p, g_k, name):
+    """Hold the backward's grad slab to its plain version's, column by
+    column; return the largest error, the largest |g|, and the largest
+    per-column error as a share of that column's bound."""
+    import torch
+
+    col_err = (g_k - g_p).abs().amax(dim=0)
+    col_max = g_p.abs().amax(dim=0)
+    bwd_err, g_max = float(col_err.max()), float(col_max.max())
+    bound = BWD_REL_TOL * col_max + BWD_FLOOR * g_max
+    bad = torch.nonzero(col_err > bound).flatten()
+    if bad.numel():
+        raise AssertionError(
+            f"[{name}] backward kernel disagrees with its plain version in slab "
+            f"columns {bad.tolist()}: max_abs_err {col_err[bad].tolist()}, "
+            f"max|g| {col_max[bad].tolist()}")
+    return bwd_err, g_max, float((col_err / (bound + 1e-30)).max())
+
+
+def compare_kernels(batch, rng, name, reps_k=20, reps_p=2, timed=False):
+    """Run both kernels and both plain versions on one prepared batch;
+    check the tolerances; return errors and (optionally) timings."""
+    import torch
+
+    from vidu4d_tpu_torch.ops.rasterize import tile_backward as tb
+    from vidu4d_tpu_torch.ops.rasterize import tile_forward as tf
+
+    geo = (batch["tiles_x"], batch["tiles_per_frame"], batch["n_extra"])
+    fw_args = (batch["slab"], batch["tile_start"], batch["tile_count"], batch["bg"])
+    col_k, aux_k = tf.forward_tiles(*fw_args, *geo)
+    torch.cuda.synchronize()
+    plain = tf.forward_tiles_plain(*fw_args, *geo)
+    torch.cuda.synchronize()
+    fwd_err, agree = check_forward(plain, (col_k, aux_k), name)
 
     nt = batch["tile_start"].shape[0]
     gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
@@ -193,18 +291,7 @@ def compare_kernels(batch, rng, name, reps_k=20, reps_p=2, timed=False):
     torch.cuda.synchronize()
     g_p = tb.backward_tiles_plain(*bw_args, *geo)
     torch.cuda.synchronize()
-    col_err = (g_k - g_p).abs().amax(dim=0)
-    col_max = g_p.abs().amax(dim=0)
-    bwd_err, g_max = float(col_err.max()), float(col_max.max())
-    bad = torch.nonzero(col_err > BWD_REL_TOL * col_max + BWD_FLOOR * g_max).flatten()
-    if bad.numel():
-        raise AssertionError(
-            f"[{name}] backward kernel disagrees with its plain version in slab "
-            f"columns {bad.tolist()}: max_abs_err {col_err[bad].tolist()}, "
-            f"max|g| {col_max[bad].tolist()}")
-    # the largest per-column error relative to that column's bound
-    bwd_bound_share = float((col_err / (BWD_REL_TOL * col_max + BWD_FLOOR * g_max
-                                        + 1e-30)).max())
+    bwd_err, g_max, bwd_bound_share = check_backward(g_p, g_k, name)
     res = {"case": name, "fwd_max_abs_err": fwd_err, "fwd_discont_agree": agree,
            "bwd_max_abs_err": bwd_err, "bwd_max_abs_g": g_max,
            "bwd_bound_share": bwd_bound_share,
@@ -230,18 +317,21 @@ def compare_kernels(batch, rng, name, reps_k=20, reps_p=2, timed=False):
 
 
 def kernel_cases(rng):
+    """Each kernel vs its plain version on seeded scenes, the work-item
+    split's cases included; the deep chain is timed. Returns its result."""
     import torch
 
+    from vidu4d_tpu_torch.ops.rasterize import tile_forward as tf
     from vidu4d_tpu_torch.ops.rasterize.tile_backward import prepare_batch
 
     cases = [
         ("64x64 2 frames X=0", dict(n=3000, res=64, frames=2, n_extra=0), 0),
         ("256x256 2 frames X=2", dict(n=40000, res=256, frames=2, n_extra=2), 0),
-        ("deep chain 24k splats / one tile", dict(n=24000, res=64, frames=1,
-                                                 n_extra=0, deep=True), 0),
+        (DEEP, dict(n=24000, res=64, frames=1, n_extra=0, deep=True), 0),
         ("256x256 entry_cap < entries", dict(n=40000, res=256, frames=2,
                                              n_extra=0), 40000),
     ]
+    results = {}
     for name, kw, cap in cases:
         with torch.no_grad():
             proj, colors, opac, bg = random_scene(rng, device="cuda", **kw)
@@ -255,7 +345,107 @@ def kernel_cases(rng):
                 raise AssertionError(f"[{name}] entry_cap did not truncate "
                                      f"({n_cap} of {n_full})")
             log(f"[check] {name}: {n_cap} of {n_full} entries kept")
-        compare_kernels(batch, rng, name)
+        results[name] = compare_kernels(batch, rng, name, timed=name == DEEP)
+    # the split's own cases: a stop on the first and on the last entry of an
+    # item, a tile of exactly 2 items, an opaque front layer (later items dead)
+    for n_extra in (0, 2):
+        batch = chain_batch(rng, tf.SEG, n_extra, "cuda")
+        compare_kernels(batch, rng, f"item boundaries X={n_extra} (SEG {tf.SEG})")
+    return results[DEEP]
+
+
+def tile_histogram(counts):
+    """Entries per (frame, tile) block of a batch, over the occupied ones."""
+    occ = counts[counts > 0].double()
+    return {"tiles": int(counts.numel()), "occupied": int(occ.numel()),
+            "max": int(occ.max()), "p99": float(occ.quantile(0.99)),
+            "mean": float(occ.mean())}
+
+
+def work_list_report(counts, n_rows, label):
+    """The kernels' work list over `counts`: every tile's entries covered
+    once, no item longer than SEG, the items within the launch grid."""
+    from vidu4d_tpu_torch.ops.rasterize import tile_forward as tf
+
+    item_off, grid = tf.work_list(counts, n_rows)
+    _, _, n = tf.decode_items(item_off, counts)
+    rep = {"seg": tf.SEG, "items": int(item_off[-1]), "grid": grid,
+           "max_entries_per_item": int(n.max()) if n.numel() else 0,
+           "max_items_per_tile": int((item_off[1:] - item_off[:-1]).max())}
+    log(f"[work list {label}] {json.dumps(rep)}")
+    if not (rep["max_entries_per_item"] <= tf.SEG and rep["items"] <= grid
+            and int(n.sum()) == int(counts.sum())):
+        raise AssertionError(f"[work list {label}] breaks its contract: {rep}")
+
+
+def needed_pairs(batch, aux):
+    """(entry, pixel) pairs these inputs need, from the plain version's
+    aux: the forward visits each pixel's entries up to its stop (the first
+    candidate at or after its n_contrib, else the tile's end), and
+    composites the candidates below n_contrib (included); the backward
+    needs the response of each pixel's entries below its n_contrib
+    (bwd_responses) and differentiates the included pairs. bwd_walked is
+    what the backward kernel walks: every tile's entries below count_eff,
+    its largest n_contrib, for all 256 pixels."""
+    import torch
+
+    from vidu4d_tpu_torch.ops.rasterize import common
+    from vidu4d_tpu_torch.ops.rasterize import tile_backward as tb
+    from vidu4d_tpu_torch.ops.rasterize import tile_forward as tf
+
+    slab, start, count = batch["slab"], batch["tile_start"], batch["tile_count"]
+    nt = start.shape[0]
+    ncon = aux[..., 9]
+    pxf, pyf = tf._pixel_centers(nt, batch["tiles_x"], batch["tiles_per_frame"],
+                                 slab.device)
+    stop = torch.full_like(ncon, -1.0)
+    included = 0
+    k = torch.arange(tf.CHUNK, device=slab.device)
+    with torch.no_grad():
+        for base in range(0, int(count.max()), tf.CHUNK):
+            rank = base + k
+            valid = rank[None, :] < count[:, None]
+            idx = torch.clamp(start[:, None].long() + rank[None, :], max=slab.shape[0] - 1)
+            r = tf.splat_response(slab[idx], pxf[:, None, :], pyf[:, None, :])
+            alpha = torch.clamp(r["alpha_raw"], max=common.ALPHA_CLAMP)
+            cand = (r["pz_ok"] & (r["depth"] >= common.NEAR_PLANE)
+                    & (alpha >= common.ALPHA_EPS) & valid[..., None])
+            below = rank.float()[None, :, None] < ncon[:, None, :]
+            included += int((cand & below).sum())
+            after = (cand & ~below).int()
+            first = torch.where(after.any(1), base + after.argmax(1).float(), -1.0)
+            stop = torch.where((stop < 0) & (first >= 0), first, stop)
+    visited = torch.where(stop >= 0, stop + 1, count[:, None].float())
+    count_eff = tb.effective_counts(count, aux[..., 8:12])
+    return {"fwd_visited": int(visited.sum()), "included": included,
+            "bwd_responses": int(ncon.double().sum()),
+            "bwd_walked": int(count_eff.sum()) * 256,
+            "count_eff_entries": int(count_eff.sum())}
+
+
+def kernel_bounds(batch, pairs):
+    """The least time the card could take for each kernel's work on these
+    inputs: the larger of its FP32 operations over 67 TFLOP/s and its bytes
+    (inputs read once, outputs written once) over 3.35 TB/s."""
+    x = batch["n_extra"]
+    nt = batch["tile_start"].shape[0]
+    px_n = 256
+    fwd_ops = OPS_RESPONSE * pairs["fwd_visited"] + (29 + 2 * x) * pairs["included"]
+    bwd_ops = OPS_RESPONSE * pairs["bwd_responses"] + (105 + 4 * x) * pairs["included"]
+    row = 32 * 4
+    fwd_bytes = (int(batch["tile_count"].sum()) * row + nt * 8 + (3 + x) * 4
+                 + nt * px_n * (3 + x + 12) * 4)
+    # slab rows below count_eff read, their grad rows written (the rest of
+    # the grad slab is zero-filled by torch, outside the kernel)
+    bwd_bytes = (2 * pairs["count_eff_entries"] * row + nt * 8
+                 + nt * px_n * (10 + x + 4) * 4)
+    out = {}
+    for name, ops, nbytes in (("tile_forward", fwd_ops, fwd_bytes),
+                              ("tile_backward", bwd_ops, bwd_bytes)):
+        t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+        out[name] = {"ops": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    return out
 
 
 def calibrate_scene(trainer, pts, batch):
@@ -471,6 +661,8 @@ def main() -> int:
                          "only on a machine with an NVIDIA GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from vidu4d_tpu_torch import kernels
+    from vidu4d_tpu_torch.ops.rasterize import tile_backward as tb
+    from vidu4d_tpu_torch.ops.rasterize import tile_forward as tf
 
     # float32 matmuls in full precision (the default), stated explicitly
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -486,10 +678,10 @@ def main() -> int:
     for line in info["ptxas"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[ptxas] {line.strip()}")
-    kernels.library()
+    tf.tile_library()
 
     rng = np.random.default_rng(1234)
-    kernel_cases(rng)
+    deep_cmp = kernel_cases(rng)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -513,10 +705,23 @@ def main() -> int:
             raise AssertionError(f"the main path renders {main_batch['n_extra']} extra "
                                  "channels, expected the 2 flow channels")
 
-        # the kernels at the main path's shapes: check and time
+        # the kernels at the main path's shapes: check and time; the tile
+        # depths, the work list, the pairs these inputs need, the bounds
         main_cmp = compare_kernels(main_batch, rng, "main path 200k 256x256 2 frames X=2",
                                    timed=True)
-        del main_batch
+        log(f"[tiles main] {json.dumps(tile_histogram(main_batch['tile_count']))}")
+        _, aux_plain = tf.forward_tiles_plain(
+            main_batch["slab"], main_batch["tile_start"], main_batch["tile_count"],
+            main_batch["bg"], main_batch["tiles_x"], main_batch["tiles_per_frame"],
+            main_batch["n_extra"])
+        pairs = needed_pairs(main_batch, aux_plain)
+        log(f"[pairs main] {json.dumps(pairs)}")
+        work_list_report(main_batch["tile_count"], main_batch["slab"].shape[0], "main fwd")
+        work_list_report(tb.effective_counts(main_batch["tile_count"], aux_plain[..., 8:12]),
+                         main_batch["slab"].shape[0], "main bwd")
+        bounds = kernel_bounds(main_batch, pairs)
+        log(f"[bounds main] {json.dumps(bounds)}")
+        del main_batch, aux_plain
 
         # the main path, default configuration
         before = {k: p.detach().clone() for k, p in trainer.deformer.named_parameters()}
@@ -550,19 +755,18 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # no single PyTorch call composites depth-sorted splats per tile with an
+    # early stop and a median, or differentiates that: library_ms is null
     result = {"kernels": [
-        {"name": "tile_forward", "route": "cuda",
-         "source": "vidu4d_tpu_torch/csrc/tile_forward.cu",
-         "replaces": "vidu4d_tpu/ops/rasterize/pallas_kernel.py:111",
-         "launches": counts["tile_forward"],
-         "max_abs_err": main_cmp["fwd_max_abs_err"],
-         "ms": main_cmp["fwd_ms"], "plain_ms": main_cmp["fwd_plain_ms"]},
-        {"name": "tile_backward", "route": "cuda",
-         "source": "vidu4d_tpu_torch/csrc/tile_backward.cu",
-         "replaces": "vidu4d_tpu/ops/rasterize/pallas_backward.py:95",
-         "launches": counts["tile_backward"],
-         "max_abs_err": main_cmp["bwd_max_abs_err"],
-         "ms": main_cmp["bwd_ms"], "plain_ms": main_cmp["bwd_plain_ms"]},
+        {"name": name, "route": "cuda",
+         "source": f"vidu4d_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+         "launches": counts[name], "max_abs_err": main_cmp[f"{key}_max_abs_err"],
+         "ms": main_cmp[f"{key}_ms"], "plain_ms": main_cmp[f"{key}_plain_ms"],
+         "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
+         "library_ms": None, "deep_chain_ms": deep_cmp[f"{key}_ms"]}
+        for name, key, replaces in (
+            ("tile_forward", "fwd", "vidu4d_tpu/ops/rasterize/pallas_kernel.py:111"),
+            ("tile_backward", "bwd", "vidu4d_tpu/ops/rasterize/pallas_backward.py:95"))
     ]}
     log(f"[summary] {card}: median step {main_ms:.3f} ms (default configuration), "
         f"{float(np.median(red_ms)):.3f} ms (reduced); "

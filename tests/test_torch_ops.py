@@ -132,14 +132,17 @@ def test_mean_knn_sq_dist():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without jax (in a fresh process)."""
+    """Every module of the port, and chip_smoke.py, imports without jax and
+    without any module of the JAX package (in a fresh process)."""
     code = (
         "import pkgutil, sys, importlib, vidu4d_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(vidu4d_tpu_torch.__path__, "
         "'vidu4d_tpu_torch.')]\n"
         "[importlib.import_module(m) for m in mods]\n"
+        "import chip_smoke\n"
         "assert len(mods) >= 20, mods\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'vidu4d_tpu' or m.startswith('vidu4d_tpu.')]\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )

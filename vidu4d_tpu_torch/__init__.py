@@ -2,13 +2,14 @@
 
 The JAX package (``vidu4d_tpu``) is the reference; this package mirrors its
 module layout (``ops/``, ``ops/rasterize/``, ``models/fields/``,
-``models/gaussian/``, ``engine/``) and never imports ``jax``. The two TPU
+``models/gaussian/``, ``engine/``, ``data/``) and never imports ``jax``. The two TPU
 Pallas rasterizer kernels are replaced by hand-written CUDA kernels for
 Hopper (``csrc/``), each with a plain PyTorch version beside it that tensors
 on the CPU run through.
 
-The only code shared with the JAX package is its numpy-only data path
-(``vidu4d_tpu.data.frame_info``, ``data_utils`` and ``vidloader``).
+It imports nothing of the JAX package: the numpy data path it needs
+(``data/frame_info.py``, ``vidloader.py``, ``data_utils.py``) is its own
+copy, restricted to the full-image reads the port trains on.
 """
 
 __version__ = "0.1.0"

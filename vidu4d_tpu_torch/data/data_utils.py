@@ -1,0 +1,127 @@
+"""Dataset construction + metadata extraction + batching helpers
+(`vidu4d_tpu/data/data_utils.py`, one process).
+
+Sequence config ini -> per-video VidDatasets -> dataset metadata
+(`get_data_info`). The pair batches themselves are drawn by the trainer's
+`PairSampler` (`vidu4d_tpu_torch/engine/gs4d_trainer.py`).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List
+
+import numpy as np
+
+from vidu4d_tpu_torch.data.frame_info import FrameInfo
+from vidu4d_tpu_torch.data.vidloader import VidDataset, load_sequence_config
+
+
+def build_datasets(opts: Dict, rng: np.random.Generator) -> List[VidDataset]:
+    config_path = os.path.join(
+        opts.get("dataroot", "database"), "configs", f"{opts['seqname']}.config"
+    )
+    vids = load_sequence_config(config_path)
+    prefix = f"{opts['data_prefix']}-{opts['train_res']}"
+    return [
+        VidDataset(
+            rgb_path=vid["img_path"],
+            dataid=vidid,
+            ks=vid["ks"],
+            raw_size=vid["shape"],
+            rng=rng,
+            data_prefix=prefix,
+            feature_type=opts.get("feature_type", "dinov2"),
+        )
+        for vidid, vid in enumerate(vids)
+    ]
+
+
+def pca_fn(features: np.ndarray, n_components: int = 3):
+    """Fit PCA, return an apply function (`data_utils.py` pca_numpy)."""
+    mean = features.mean(axis=0)
+    centered = features - mean
+    _, _, vt = np.linalg.svd(centered, full_matrices=False)
+    basis = vt[:n_components]
+
+    def apply(x):
+        shape = x.shape
+        flat = x.reshape(-1, shape[-1])
+        out = (flat - mean) @ basis.T
+        return out.reshape(shape[:-1] + (n_components,))
+
+    return apply
+
+
+def get_data_info(datasets: List[VidDataset]) -> Dict:
+    """Dataset metadata (`data_utils.py:226-335`)."""
+    if not datasets:
+        raise ValueError(
+            "config lists no videos — write_config skips sequences shorter "
+            "than 8 frames (reference rule), so check the sequence length "
+            "and that JPEGImages/Full-Resolution/<seqname>/ has .jpg frames"
+        )
+    frame_offset = [0]
+    frame_offset_raw = [0]
+    frame_mapping = []
+    intrinsics = []
+    raw_size = []
+    feature_px = []
+
+    for ds in datasets:
+        n = ds.num_frames
+        frame_offset.append(frame_offset[-1] + n)
+        frame_offset_raw.append(frame_offset_raw[-1] + n)
+        frame_mapping += [i + frame_offset_raw[-2] for i in range(n)]
+        intrinsics += [ds.ks] * n
+        raw_size.append(ds.raw_size)
+        feats = np.asarray(ds.mmap["feature"], np.float32).reshape(-1, 16)
+        feature_px.append(feats[:: max(1, len(feats) // 1000)])
+
+    feature_px = np.concatenate(feature_px, 0)
+    feature_px = feature_px[np.linalg.norm(feature_px, 2, -1) > 0]
+
+    frame_info = FrameInfo(
+        frame_offset=tuple(frame_offset),
+        frame_mapping=tuple(frame_mapping),
+        frame_offset_raw=tuple(frame_offset_raw),
+    )
+
+    data_info = {
+        "frame_info": frame_info,
+        "total_frames": frame_offset[-1],
+        "intrinsics": np.asarray(intrinsics, np.float32),
+        "raw_size": np.asarray(raw_size),
+        "apply_pca_fn": pca_fn(feature_px) if len(feature_px) else None,
+    }
+
+    # camera priors + centered meshes (`data_utils.py:305-335`)
+    rt_bg, rt_fg = [], []
+    for ds in datasets:
+        if os.path.exists(ds.paths["cambg"]):
+            rt_bg.append(np.load(ds.paths["cambg"]).astype(np.float32))
+        if os.path.exists(ds.paths["camfg"]):
+            rt_fg.append(np.load(ds.paths["camfg"]).astype(np.float32))
+    if rt_fg:
+        rtmat_fg = np.concatenate(rt_fg, 0)
+        rtmat_bg = np.concatenate(rt_bg, 0) if rt_bg else rtmat_fg
+        data_info["rtmat"] = np.stack([rtmat_bg, rtmat_fg], 0)
+        cam_dir = os.path.dirname(datasets[0].paths["cambg"])
+        data_info["geom_path"] = [
+            os.path.join(cam_dir, "mesh-00-centered.obj"),
+            os.path.join(cam_dir, "mesh-01-centered.obj"),
+        ]
+    return data_info
+
+
+def flatten_pairs(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """(M, 2, ...) -> (2M, ...) (`model.py:539-548`)."""
+    return {k: v.reshape((-1,) + v.shape[2:]) for k, v in batch.items()}
+
+
+def compute_frameid(batch: Dict, frame_info: FrameInfo) -> Dict:
+    """Add global raw frame ids (`model.py:94-110`)."""
+    offset = np.asarray(frame_info.frame_offset_raw)
+    batch = dict(batch)
+    batch["frameid"] = batch["frameid_sub"] + offset[batch["dataid"]]
+    return batch

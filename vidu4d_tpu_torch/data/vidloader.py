@@ -1,0 +1,219 @@
+"""Video dataset: mmap'd npy frame data + pair sampling
+(`vidu4d_tpu/data/vidloader.py`, full-image reads only).
+
+Reads the Stage-1 on-disk contract:
+
+    database/processed/{JPEGImages,Annotations,FlowFW_d,FlowBW_d,Depth,
+                        Features,Cameras}/Full-Resolution/<seqname>/
+        {crop,full}-256.npy            (T,H,W,3) rgb, fp16, 0..1
+        Annotations/.../{prefix}.npy   (T,H,W,2) [mask, vis2d]
+        .../{prefix}-crop2raw.npy      (T,4)
+        .../{prefix}-is_detected.npy   (T,)
+        FlowFW_d/.../{prefix}.npy      (T//d,H,W,3) [flow_xy, uncertainty]
+        Depth/.../{prefix}.npy         (T,H,W) fp16
+        Features/.../{prefix}-{feature_type}-01.npy  (T,112,112,16)
+        Cameras/.../00.npy, 01-canonical.npy         (T,4,4)
+
+Pairs (frame t, t+delta) with delta sampled from {1} + {2,4,8} gated by
+divisibility (`vidloader.py:179-195`). Every item is a whole image (the
+port trains on full images only), in raster order. The rng draws are the
+JAX package's, so the same seed gives the same pairs.
+"""
+
+from __future__ import annotations
+
+import configparser
+import os
+from typing import Dict, List
+
+import numpy as np
+
+# the pair offsets besides 1 (`vidloader.py:179-195`)
+DELTAS = (2, 4, 8)
+
+
+def bilinear_interp(feat: np.ndarray, xy: np.ndarray) -> np.ndarray:
+    """Bilinear sample feat (H, W, C) at float pixel coords xy (N, 2)."""
+    h, w = feat.shape[:2]
+    x = np.clip(xy[:, 0], 0, w - 1.000001)
+    y = np.clip(xy[:, 1], 0, h - 1.000001)
+    x0 = np.floor(x).astype(np.int64)
+    y0 = np.floor(y).astype(np.int64)
+    x1 = x0 + 1
+    y1 = y0 + 1
+    wx = (x - x0)[:, None]
+    wy = (y - y0)[:, None]
+    out = (
+        feat[y0, x0] * (1 - wx) * (1 - wy)
+        + feat[y0, x1] * wx * (1 - wy)
+        + feat[y1, x0] * (1 - wx) * wy
+        + feat[y1, x1] * wx * wy
+    )
+    return out
+
+
+class RangeSampler:
+    """Sample without replacement from [0, num_elems) (`vidloader.py:15-45`)."""
+
+    def __init__(self, num_elems: int, rng: np.random.Generator):
+        self.num_elems = num_elems
+        self.rng = rng
+        self._queue = self.rng.permutation(num_elems)
+        self._idx = 0
+
+    def sample(self, num_samples: int) -> np.ndarray:
+        if self._idx + num_samples > self.num_elems:
+            self._queue = self.rng.permutation(self.num_elems)
+            self._idx = 0
+        out = self._queue[self._idx : self._idx + num_samples]
+        self._idx += num_samples
+        return out
+
+
+class VidDataset:
+    """Frame data and annotations for one video, read as whole images."""
+
+    def __init__(
+        self,
+        rgb_path: str,
+        dataid: int,
+        ks: List[float],
+        raw_size: List[int],
+        rng: np.random.Generator,
+        data_prefix: str = "crop-256",
+        feature_type: str = "dinov2",
+    ):
+        self.dataid = dataid
+        self.ks = ks
+        self.raw_size = raw_size
+        self.rng = rng
+
+        base = os.path.join(rgb_path, f"{data_prefix}.npy")
+        mask_path = base.replace("JPEGImages", "Annotations")
+        cam_dir = base.replace("JPEGImages", "Cameras").rsplit("/", 1)[0]
+        self.paths = {
+            "rgb": base,
+            "mask": mask_path,
+            "depth": base.replace("JPEGImages", "Depth"),
+            "feature": os.path.join(
+                os.path.dirname(base.replace("JPEGImages", "Features")),
+                f"{data_prefix}-{feature_type}-01.npy",
+            ),
+            "crop2raw": mask_path.replace(".npy", "-crop2raw.npy"),
+            "is_detected": mask_path.replace(".npy", "-is_detected.npy"),
+            "cambg": os.path.join(cam_dir, "00.npy"),
+            "camfg": os.path.join(cam_dir, "01-canonical.npy"),
+        }
+
+        self.mmap: Dict[str, np.ndarray] = {}
+        self.mmap["rgb"] = np.load(self.paths["rgb"], mmap_mode="r")
+        self.num_frames = self.mmap["rgb"].shape[0]
+        self.img_size = self.mmap["rgb"].shape[1:3]
+        self.mmap["mask"] = np.load(self.paths["mask"], mmap_mode="r")
+        self.mmap["depth"] = np.load(self.paths["depth"], mmap_mode="r")
+        if os.path.exists(self.paths["feature"]):
+            self.mmap["feature"] = np.load(self.paths["feature"], mmap_mode="r")
+        else:
+            self.mmap["feature"] = np.zeros(
+                (self.num_frames, 112, 112, 16), np.float16
+            )
+        self.crop2raw = np.load(self.paths["crop2raw"]).astype(np.float32)
+        self.is_detected = np.load(self.paths["is_detected"]).astype(np.float32)
+
+        self.flow = {"fw": {}, "bw": {}}
+        for delta in (1,) + DELTAS:
+            for dname, key in (("FlowFW", "fw"), ("FlowBW", "bw")):
+                p = base.replace("JPEGImages", f"{dname}_{delta}")
+                if os.path.exists(p):
+                    self.flow[key][delta] = np.load(p, mmap_mode="r")
+
+        # the JAX dataset's pixel sampler; built here for its draw from the
+        # shared rng, so that the pair draws that follow stay the same
+        self.idx_sampler = RangeSampler(
+            self.img_size[0] * self.img_size[1], rng=self.rng
+        )
+
+    def __len__(self):
+        return self.num_frames - 1
+
+    def sample_delta(self, index: int) -> int:
+        """(`vidloader.py:179-195`)."""
+        deltas = [1] + [
+            d
+            for d in DELTAS
+            if (index % d == 0) and (index + d) < self.num_frames and d in self.flow["fw"]
+        ]
+        return int(self.rng.choice(deltas))
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        delta = self.sample_delta(index)
+        d0 = self.read_raw(index, delta)
+        d1 = self.read_raw(index + delta, -delta)
+        return {k: np.stack([d0[k], d1[k]]) for k in d0}
+
+    def read_raw(self, idx: int, delta: int) -> Dict[str, np.ndarray]:
+        """Frame ``idx`` and its flow towards ``idx + delta``, every pixel in
+        raster order."""
+        flow = self._read_flow(idx, delta)
+        feat = self.mmap["feature"][idx]
+        rgb = np.asarray(self.mmap["rgb"][idx], np.float32)
+        mask_all = np.asarray(self.mmap["mask"][idx], np.float32)
+        depth = np.asarray(self.mmap["depth"][idx], np.float32)
+
+        x0, y0 = np.meshgrid(range(self.img_size[1]), range(self.img_size[0]))
+        hxy = np.stack([x0, y0, np.ones_like(x0)], -1).reshape(-1, 3)
+        sel = lambda a: a.reshape((-1,) + a.shape[2:])
+        feat_sel = bilinear_interp(
+            np.asarray(feat, np.float32),
+            hxy[:, :2] / self.img_size[0] * feat.shape[0],
+        )
+
+        if rgb.ndim == 2:
+            rgb = np.repeat(rgb[..., None], 3, -1)
+        mask = mask_all[..., :1]
+        vis2d = mask_all[..., 1:2]
+        return {
+            "rgb": sel(rgb).astype(np.float32),
+            "mask": sel(mask).astype(np.float32),
+            "vis2d": sel(vis2d).astype(np.float32),
+            "depth": sel(depth[..., None]).astype(np.float32),
+            "flow": sel(flow[..., :2]).astype(np.float32),
+            "flow_uct": sel(flow[..., 2:3]).astype(np.float32),
+            "feature": feat_sel.astype(np.float32),
+            "crop2raw": self.crop2raw[idx],
+            "is_detected": np.float32(self.is_detected[idx]),
+            "dataid": np.int32(self.dataid),
+            "frameid_sub": np.int32(idx),
+            "hxy": hxy.astype(np.float32),
+        }
+
+    def _read_flow(self, idx: int, delta: int) -> np.ndarray:
+        is_fw = delta > 0
+        d = abs(delta)
+        table = self.flow["fw" if is_fw else "bw"]
+        if d not in table:
+            return np.zeros(self.img_size + (3,), np.float32)
+        if is_fw:
+            return np.asarray(table[d][idx // d], np.float32)
+        return np.asarray(table[d][idx // d - 1], np.float32)
+
+
+def load_sequence_config(config_path: str):
+    """Parse the database/configs/<seq>.config ini (`write_config.py:11-45`)."""
+    config = configparser.RawConfigParser()
+    config.read(config_path)
+    data_section = dict(config["data"]) if "data" in config else {}
+    vids = []
+    for name in config.sections():
+        if not name.startswith("data_"):
+            continue
+        sec = dict(config[name])
+        sec = {**data_section, **sec}
+        vids.append(
+            {
+                "img_path": sec["img_path"],
+                "ks": [float(x) for x in sec["ks"].split(" ")],
+                "shape": [int(x) for x in sec["shape"].split(" ")],
+            }
+        )
+    return vids

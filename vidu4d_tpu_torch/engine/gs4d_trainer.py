@@ -26,7 +26,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from vidu4d_tpu.data import data_utils
+from vidu4d_tpu_torch.data import data_utils
 from vidu4d_tpu_torch.engine import losses as losses_mod
 from vidu4d_tpu_torch.engine.optim import WarpAdamW
 from vidu4d_tpu_torch.engine.schedules import progress_schedule
@@ -124,9 +124,7 @@ class Stage3Trainer:
         seed = max(opts.get("seed", 0), 0)
         if datasets is None:
             # the JAX trainer's single-host dataset rng (data_utils.py:38-42)
-            datasets = data_utils.build_datasets(
-                {**opts, "pixels_per_image": -1},
-                rng=np.random.default_rng(seed + 1))
+            datasets = data_utils.build_datasets(opts, rng=np.random.default_rng(seed + 1))
         self.datasets = datasets
         self.data_info = data_info or data_utils.get_data_info(datasets)
         self.frame_info = self.data_info["frame_info"]

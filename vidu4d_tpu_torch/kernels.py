@@ -120,10 +120,13 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library with every entry point's signature set."""
     lib = ctypes.CDLL(build()["path"])
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vidu4d_tile_forward.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    lib.vidu4d_tile_forward.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.vidu4d_tile_forward.restype = i
-    lib.vidu4d_tile_backward.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    lib.vidu4d_tile_backward.argtypes = [p] * 8 + [i] * 5 + [p]
     lib.vidu4d_tile_backward.restype = i
+    for layout in (lib.vidu4d_tile_seg, lib.vidu4d_tile_part_fixed):
+        layout.argtypes = []
+        layout.restype = i
     lib.vidu4d_error_string.argtypes = [i]
     lib.vidu4d_error_string.restype = ctypes.c_char_p
     return lib

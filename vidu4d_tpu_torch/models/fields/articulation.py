@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from vidu4d_tpu.data.frame_info import FrameInfo
+from vidu4d_tpu_torch.data.frame_info import FrameInfo
 from vidu4d_tpu_torch.models.fields.time_mlp import Head, TimeMLPTrunk
 from vidu4d_tpu_torch.ops.quaternion import (
     DualQuaternion,

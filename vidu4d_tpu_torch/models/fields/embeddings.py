@@ -7,7 +7,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from vidu4d_tpu.data.frame_info import FrameInfo
+from vidu4d_tpu_torch.data.frame_info import FrameInfo
 
 
 def pos_embed(x: torch.Tensor, n_freqs: int) -> torch.Tensor:

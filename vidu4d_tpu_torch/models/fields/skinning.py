@@ -8,7 +8,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from vidu4d_tpu.data.frame_info import FrameInfo
+from vidu4d_tpu_torch.data.frame_info import FrameInfo
 from vidu4d_tpu_torch.models.fields.embeddings import TimeEmbedding, pos_embed
 from vidu4d_tpu_torch.models.fields.mlp import CondMLP
 from vidu4d_tpu_torch.ops.quaternion import (

@@ -7,7 +7,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from vidu4d_tpu.data.frame_info import FrameInfo
+from vidu4d_tpu_torch.data.frame_info import FrameInfo
 from vidu4d_tpu_torch.models.fields.embeddings import TimeEmbedding, adjusted_num_freq_t
 from vidu4d_tpu_torch.models.fields.mlp import BaseMLP
 from vidu4d_tpu_torch.ops.numerics import safe_norm, safe_normalize

@@ -13,7 +13,7 @@ from typing import Dict
 import torch
 from torch import nn
 
-from vidu4d_tpu.data.frame_info import FrameInfo
+from vidu4d_tpu_torch.data.frame_info import FrameInfo
 from vidu4d_tpu_torch.models.fields.articulation import ArticulationFlatMLP
 from vidu4d_tpu_torch.models.fields.skinning import SkinningField, cross_entropy_skin_loss
 from vidu4d_tpu_torch.ops.quaternion import (

@@ -14,7 +14,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from vidu4d_tpu.data.frame_info import FrameInfo
+from vidu4d_tpu_torch.data.frame_info import FrameInfo
 from vidu4d_tpu_torch.models.fields.dyn_nerf import flip_pair
 from vidu4d_tpu_torch.models.fields.mlp import flax_default_init_
 from vidu4d_tpu_torch.models.fields.time_mlp import CameraMLP, IntrinsicsMLP

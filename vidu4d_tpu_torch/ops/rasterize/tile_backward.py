@@ -22,7 +22,7 @@ from vidu4d_tpu_torch.ops.rasterize.compositing import CompositeOutput
 from vidu4d_tpu_torch.ops.rasterize.tile_forward import (
     CHUNK, E0, E1, E2, EXTRA, NRM, OPAC, PA, PB, PC, QD, RGB, SLAB_WIDTH,
     TILE, TW2, _pixel_centers, forward_tiles, ndc_depth, pack_props,
-    splat_response,
+    splat_response, tile_library, work_list,
 )
 
 
@@ -138,14 +138,22 @@ def backward_tiles_plain(slab, tile_start, tile_count, cot, resid,
     return grad
 
 
+def effective_counts(tile_count, resid):
+    """(T,) int32: each tile's entries up to its largest n_contrib, the
+    only ones with a gradient."""
+    n_max = torch.ceil(torch.amax(resid[..., 1], dim=1)).to(torch.int32)
+    return torch.minimum(tile_count, n_max).contiguous()
+
+
 def backward_tiles(slab, tile_start, tile_count, cot, resid, tiles_x: int,
                    tiles_per_frame: int, n_extra: int):
     """Per-entry (E, 32) grad slab of the forward compositor.
 
     cot (T, 256, 10 + n_extra): gC(3) gD gA gN(3) gBGdot gDist gX;
     resid (T, 256, 4): T_fin, n_contrib, S1, S2 (aux[..., 8:12]).
-    CPU tensors run the plain version; CUDA tensors launch the kernel, or
-    this raises."""
+    CPU tensors run the plain version; CUDA tensors launch the kernels (two
+    passes over the work list of count_eff, each tile's entries up to its
+    largest n_contrib), or this raises."""
     if slab.device.type == "cpu":
         return backward_tiles_plain(slab, tile_start, tile_count, cot, resid,
                                     tiles_x, tiles_per_frame, n_extra)
@@ -161,12 +169,16 @@ def backward_tiles(slab, tile_start, tile_count, cot, resid, tiles_x: int,
     kernels.check_tensor("tile_count", tile_count, dev, (nt,), torch.int32)
     kernels.check_tensor("cot", cot, dev, (nt, px_n, 10 + n_extra))
     kernels.check_tensor("resid", resid, dev, (nt, px_n, 4))
+    lib = tile_library()
+    count_eff = effective_counts(tile_count, resid)
+    item_off, n_blocks = work_list(count_eff, slab.shape[0])
+    pl = torch.empty((n_blocks, 2, px_n), dtype=torch.float32, device=dev)
     grad = torch.zeros_like(slab)
-    lib = kernels.library()
     rc = lib.vidu4d_tile_backward(
-        slab.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
-        cot.data_ptr(), resid.data_ptr(), grad.data_ptr(), nt, tiles_x,
-        tiles_per_frame, n_extra, kernels.stream_ptr(dev),
+        slab.data_ptr(), tile_start.data_ptr(), count_eff.data_ptr(),
+        item_off.data_ptr(), cot.data_ptr(), resid.data_ptr(), pl.data_ptr(),
+        grad.data_ptr(), nt, n_blocks, tiles_x, tiles_per_frame, n_extra,
+        kernels.stream_ptr(dev),
     )
     kernels.check_launch(rc, "tile_backward")
     kernels.COUNTS["tile_backward"] += 1

@@ -5,13 +5,19 @@
 slab, one row per depth-sorted tile entry (the row layout of the JAX
 package: the two-plane intersection in affine-coefficient form, so that the
 per (entry, pixel) work is ~2 FMAs per component). `forward_tiles` runs the
-forward compositor over every (frame, tile): the hand-written CUDA kernel
-``csrc/tile_forward.cu`` for tensors on a CUDA device, its plain PyTorch
+forward compositor over every (frame, tile): the hand-written CUDA kernels
+of ``csrc/tile_forward.cu`` for tensors on a CUDA device, its plain PyTorch
 version `forward_tiles_plain` for tensors on the CPU. There is no fallback
 from one to the other.
+
+The kernels split every tile's entry list into work items of at most `SEG`
+entries, one block per item; `work_list` builds the item table on the
+device (no host synchronisation) and `decode_items` is its plain reading.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -32,6 +38,45 @@ MAX_EXTRA = SLAB_WIDTH - EXTRA
 CHUNK = 128  # tile segments start on CHUNK boundaries (bin_splats_aligned)
 TILE = 16    # the kernels run one thread per pixel of a 16x16 tile
 N_AUX = 12   # aux channels, see csrc/tile_forward.cu
+SEG = 256    # entries per work item of the tile kernels (kSeg, csrc/tile_common.cuh)
+N_PART_FIXED = 11  # per-item partial channels besides colour (csrc/tile_forward.cu)
+
+
+@functools.lru_cache(maxsize=None)
+def tile_library():
+    """The kernel library, once its item size and partial channels are
+    checked against SEG and N_PART_FIXED, with which the wrappers size the
+    work list and the partials buffer."""
+    lib = kernels.library()
+    got = (lib.vidu4d_tile_seg(), lib.vidu4d_tile_part_fixed())
+    if got != (SEG, N_PART_FIXED):
+        raise RuntimeError(f"the kernels' (item size, partial channels) {got} are "
+                           f"not (SEG, N_PART_FIXED) = {(SEG, N_PART_FIXED)}")
+    return lib
+
+
+def work_list(counts: torch.Tensor, n_rows: int, seg: int = SEG):
+    """The tile kernels' work list over (T,) int32 entry counts.
+
+    Tile t owns items [item_off[t], item_off[t+1]); its item s covers
+    entries [s*seg, min((s+1)*seg, count)). Returns item_off (T+1,) int32,
+    an exclusive cumsum computed on counts' device, and the host-known
+    grid size T + ceil(n_rows / seg), which bounds the item count because
+    the tiles' segments are disjoint inside a slab of n_rows rows."""
+    nt = counts.shape[0]
+    items = torch.div(counts + (seg - 1), seg, rounding_mode="floor")
+    item_off = torch.zeros(nt + 1, dtype=torch.int32, device=counts.device)
+    item_off[1:] = torch.cumsum(items, 0)
+    return item_off, nt + -(-n_rows // seg)
+
+
+def decode_items(item_off: torch.Tensor, counts: torch.Tensor, seg: int = SEG):
+    """Per item of a work list: (tile, first entry, entry count), each
+    (N,), as the kernels find them (the largest t with item_off[t] <= item)."""
+    item = torch.arange(int(item_off[-1]), device=item_off.device)
+    tile = torch.searchsorted(item_off, item, right=True) - 1
+    first = (item - item_off[tile]) * seg
+    return tile, first, torch.clamp(counts[tile] - first, max=seg)
 
 
 class _RowGather(torch.autograd.Function):
@@ -194,7 +239,7 @@ def forward_tiles(slab, tile_start, tile_count, bg, tiles_x: int,
     slab (E, 32) f32; tile_start / tile_count (T,) int32, segments inside
     the slab; bg (3 + n_extra,) f32. Returns color (T, 256, 3 + n_extra) and
     aux (T, 256, 12). CPU tensors run the plain version; CUDA tensors launch
-    the kernel, or this raises."""
+    the kernels (three passes over the work list), or this raises."""
     if slab.device.type == "cpu":
         return forward_tiles_plain(slab, tile_start, tile_count, bg, tiles_x,
                                    tiles_per_frame, n_extra)
@@ -211,13 +256,19 @@ def forward_tiles(slab, tile_start, tile_count, bg, tiles_x: int,
     kernels.check_tensor("tile_start", tile_start, dev, (nt,), torch.int32)
     kernels.check_tensor("tile_count", tile_count, dev, (nt,), torch.int32)
     kernels.check_tensor("bg", bg, dev, (nchan,))
-    color = torch.empty((nt, TILE * TILE, nchan), dtype=torch.float32, device=dev)
-    aux = torch.empty((nt, TILE * TILE, N_AUX), dtype=torch.float32, device=dev)
-    lib = kernels.library()
+    lib = tile_library()
+    item_off, n_blocks = work_list(tile_count, slab.shape[0])
+    px_n = TILE * TILE
+    color = torch.empty((nt, px_n, nchan), dtype=torch.float32, device=dev)
+    aux = torch.empty((nt, px_n, N_AUX), dtype=torch.float32, device=dev)
+    trans = torch.empty((n_blocks, px_n), dtype=torch.float32, device=dev)
+    part = torch.empty((n_blocks, N_PART_FIXED + nchan, px_n), dtype=torch.float32,
+                       device=dev)
     rc = lib.vidu4d_tile_forward(
         slab.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
-        bg.data_ptr(), color.data_ptr(), aux.data_ptr(), nt, tiles_x,
-        tiles_per_frame, n_extra, kernels.stream_ptr(dev),
+        item_off.data_ptr(), bg.data_ptr(), trans.data_ptr(), part.data_ptr(),
+        color.data_ptr(), aux.data_ptr(), nt, n_blocks, tiles_x, tiles_per_frame,
+        n_extra, kernels.stream_ptr(dev),
     )
     kernels.check_launch(rc, "tile_forward")
     kernels.COUNTS["tile_forward"] += 1
