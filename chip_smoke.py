@@ -45,7 +45,29 @@ Phases (any failed check raises, so the exit code is non-zero):
      have launched and no plain version run; every loss term of the
      configuration present and finite, gnorm finite, the deformer moved by
      its AdamW;
-  8. reduced path: the same at 2 warm-up + 4 timed steps.
+  8. reduced path: the same at 2 warm-up + 4 timed steps;
+  9. the densify / opacity-reset / outlier hooks on the CPU and on the card
+     from one seeded state (capacity 8192, 4096 alive, the same split
+     noise): info counts and masks equal, float rows within 1e-6;
+ 10. the round path (`Stage3Trainer.train` + `train_one_round`) at the JAX
+     trainer's default capacity, 400k slots with the 200k calibrated
+     surfels alive, ROUND_OPTS' cadence: 2 rounds of 20 steps (an eval
+     render each, the forward kernel only; checkpoints and .ply after
+     each), the last checkpoint reloaded into a fresh trainer (bitwise
+     equal), then 11 steps in chunks of 3. The cloud lies on a surface
+     (`scene_target`) seen from one camera pose in every frame. Every hook
+     must fire when and where ROUND_FIRED says (densify with clones or
+     splits, the size rules from step 40, the reset leaving every alive
+     opacity <= 0.01, the outlier prune, the last densify after a 2-step
+     chunk), alive must move as the hooks' counts say, every step's
+     metrics and every render stay finite, each eval render must cover
+     >= ROUND_MIN_COVER of its image (mask > 0.01), and the launches count
+     1 forward per step and per eval render, 1 backward per step, no plain
+     version. After
+     the counts are read, both kernels are held against their plain
+     versions on the inputs of ROUND_CHECKS, kept from the run. Prints the
+     hooks', the eval renders', the checkpoints' and the rounds' times,
+     the file sizes and the median step.
 The last two lines are a JSON object of per-kernel results and
 {"ok": true, "device": {...}}.
 
@@ -61,6 +83,11 @@ Tolerances (kernel vs plain version, same inputs, float32):
     with pixel coordinates and are orders of magnitude above the opacity,
     colour, normal and extra columns; the floor covers columns whose
     per-pixel terms cancel in the sum.
+Hooks, card vs CPU: info counts and alive masks equal; every float row
+within 1e-6 (relative above magnitude 1: the log-scales and logits reach
+~10); the outlier masks equal except at slots with an alive neighbour whose
+squared distance is within 1e-6 r^2 + 4 eps32 (|q|^2 + |p|^2) of r^2 (the
+float32 rounding of |q|^2 + |p|^2 - 2 q.p), which are listed.
 Whole small step, card vs CPU: each loss to 1e-3 relative + 1e-8 (the
 cycle term is a difference of nearly equal points), gnorm 1e-3 relative;
 gradients of each surfel field and deformer parameter to STEP_GRAD_REL_TOL
@@ -87,6 +114,36 @@ MAIN_SURFELS, MAIN_RES = 200_000, 256  # the bench.py workload
 MAIN_LAMBDA_DIST = 100.0  # distortion weight of the steps with the 2DGS terms
 MAIN_STEPS = (2, 8, 2)  # warm-up, timed, then with the 2DGS terms
 REDUCED_STEPS = (2, 4)  # warm-up, timed
+ROUND_CAPACITY = 400_000  # the JAX trainer's default gs_capacity
+# the round path: 2 rounds of 20 steps through train(), then a round of 11
+# steps in chunks of 3 (ending at steps 43, 46, 49 and 51). The cadence is
+# scaled down so every hook fires at full width: densify at 10, 20, 30, 40
+# and 50 (the size rules from 40, after the first reset; 50 fires after
+# the 2-step chunk ending at 51), opacity reset at 30, outlier prune at 20
+# and 40
+ROUND_OPTS = {"num_rounds": 2, "iters_per_round": 20, "save_freq": 1,
+              "densify_from_iter": 5, "densification_interval": 10,
+              "opacity_reset_interval": 30, "outlier_filtering_interval": 20}
+ROUND_K3 = {"iters_per_dispatch": 3, "iters_per_round": 11}
+# share of an eval render's pixels (mask > 0.01) the cloud must cover: all
+# of them at step 0; training on the synthetic database (noise images and
+# masks) moves and shrinks the cloud, to ~0.16 of frame 0 at step 20
+ROUND_MIN_COVER = 0.05
+# (hook, step m it fired for, current_steps when it ran) of the round path
+ROUND_FIRED = [("densify", 10, 10), ("densify", 20, 20), ("outlier", 20, 20),
+               ("densify", 30, 30), ("reset_opacity", 30, 30), ("densify", 40, 40),
+               ("outlier", 40, 40), ("densify", 50, 51)]
+# the kernels' inputs held against the plain versions, by the step count
+# when they were built: the eval render of round 2 (1 frame, no extra
+# channel, after densify and the outlier prune at 10 and 20) and the step
+# after densify (size rules on) and the outlier prune at 40
+ROUND_CHECKS = {"eval render after the hooks of round 1": ("render", 20),
+                "step after densify and outlier@40": ("step", 40)}
+# the keys of a prepared batch that compare_kernels reads
+KERNEL_INPUTS = ("slab", "tile_start", "tile_count", "bg", "tiles_x", "tiles_per_frame",
+                 "n_extra")
+# the hooks on the CPU and on the card, from one state
+HOOK_CAP, HOOK_ALIVE, HOOK_TOL = 8192, 4096, 1e-6
 # the reduced configuration: no warp AdamW, rgb/depth/mask losses only, no flow
 REDUCED = {"gs_optim_warp": False, "rgb_loss_only": True, "flow_wt": 0.0}
 # the loss terms of the default configuration (+ the 2DGS ones)
@@ -448,10 +505,30 @@ def kernel_bounds(batch, pairs):
     return out
 
 
-def calibrate_scene(trainer, pts, batch):
+def scene_target(n, surface=False):
+    """Camera-space points the cloud is placed at: bench.py's Gaussian blob
+    (sd 0.05, 0.06, 0.035 at depth 0.38), or with ``surface`` an ellipsoid
+    shell of semi-axes 2 sd with 1% radial jitter, 1% of the points moved
+    to a sparse halo in the box of 3 sd: surfels on a surface, as in a
+    trained scene, which the radius-outlier rule (20 neighbours within
+    0.004) keeps, and stray ones, which it prunes."""
+    rngl = np.random.default_rng(1)
+    sd, centre = np.array([0.05, 0.06, 0.035]), np.array([0.0, 0.0, 0.38])
+    if not surface:
+        return (rngl.normal(size=(n, 3)) * sd + centre).astype(np.float32)
+    u = rngl.normal(size=(n, 3))
+    pts = (u / np.linalg.norm(u, axis=-1, keepdims=True) * 2.0 * sd
+           * (1.0 + 0.01 * rngl.normal(size=(n, 1))))
+    halo = rngl.permutation(n)[:n // 100]
+    pts[halo] = rngl.uniform(-3.0 * sd, 3.0 * sd, (len(halo), 3))
+    return (pts + centre).astype(np.float32)
+
+
+def calibrate_scene(trainer, pts, batch, target):
     """bench.py:_calibrate_scene through the port's warp: affine-fit
-    cam = world @ A + b on a subsample, solve for a cloud that lands in a
-    visible camera-space box; iterate to absorb the warp's nonlinearity."""
+    cam = world @ A + b on a subsample, solve for a cloud that lands on
+    the camera-space ``target`` points; iterate to absorb the warp's
+    nonlinearity."""
     import torch
 
     d = trainer.deformer
@@ -461,9 +538,6 @@ def calibrate_scene(trainer, pts, batch):
         samples = d.get_samples(batch)
         rot = torch.zeros((n, 4), device=dev)
         rot[:, 0] = 1.0
-        rngl = np.random.default_rng(1)
-        target = (rngl.normal(size=(n, 3)) * np.array([0.05, 0.06, 0.035])
-                  + np.array([0.0, 0.0, 0.38])).astype(np.float32)
         sub = np.arange(0, n, max(1, n // 2048))
         for _ in range(3):
             xc = d.warp_surfels(torch.as_tensor(pts, device=dev), rot, samples)[0]
@@ -499,11 +573,18 @@ def load_make_fake_db():
     return mod.make_fake_db
 
 
-def build_trainer(tmp, device, surfels, res, frames=2, reduced=False):
+def build_trainer(tmp, device, surfels, res, frames=2, reduced=False, capacity=None,
+                  surface=False, **extra):
     """The bench.py workload through the port's trainer: the default
     configuration (or the reduced one), pixel-true intrinsics, a cloud
-    placed through the warp on one batch, 16-dim registration features.
-    Returns (trainer, that batch)."""
+    placed through the warp on one batch, 16-dim registration features, in
+    a store of ``capacity`` slots (default: ``surfels``, no dead slot);
+    ``surface``: the cloud on `scene_target`'s shell, and the camera MLP's
+    output layers set to the identity pose in every frame, so that every
+    frame sees the cloud, as a video's camera keeps its subject in view
+    (the random time-varying pose puts the cloud behind the camera in
+    some frames, frame 0, the eval render's, among them);
+    ``extra``: more options. Returns (trainer, that batch)."""
     import torch
 
     from vidu4d_tpu_torch.engine.gs4d_trainer import Stage3Trainer
@@ -515,27 +596,34 @@ def build_trainer(tmp, device, surfels, res, frames=2, reduced=False):
         "dataroot": db, "seqname": "toy", "logname": "smoke",
         "logroot": os.path.join(tmp, "logdir"), "data_prefix": "crop",
         "train_res": res, "pixels_per_image": -1, "imgs_per_gpu": frames // 2,
-        "fg_motion": "gs-bob", "gs_capacity": surfels, "gs_init_samples": surfels,
-        "sh_degree": 3, "raster_impl": "pallas_grad", "raster_span_cap": 4,
-        "num_rounds": 60, "iters_per_round": 200, "lambda_dist": MAIN_LAMBDA_DIST,
-        **(REDUCED if reduced else {}),
+        "fg_motion": "gs-bob", "gs_capacity": capacity or surfels,
+        "gs_init_samples": surfels, "sh_degree": 3, "raster_impl": "pallas_grad",
+        "raster_span_cap": 4, "num_rounds": 60, "iters_per_round": 200,
+        "lambda_dist": MAIN_LAMBDA_DIST, **(REDUCED if reduced else {}), **extra,
     }
     trainer = Stage3Trainer(opts, device)
     n_frames = int(np.asarray(trainer.frame_info.frame_offset)[-1])
     prior = np.tile(np.array([1.2 * res, 1.2 * res, res / 2, res / 2], np.float32),
                     (n_frames, 1))
     init_intrinsics_base_params(trainer.deformer.intrinsics, prior, trainer.frame_info)
+    if surface:
+        cam = trainer.deformer.camera_mlp
+        with torch.no_grad():
+            for head, bias in ((cam.trans_head, (0.0, 0.0, 0.0)),
+                               (cam.quat_head, (1.0, 0.0, 0.0, 0.0))):
+                head.out.weight.zero_()
+                head.out.bias.copy_(torch.tensor(bias))
     rng = np.random.default_rng(0)
     pts = rng.normal(size=(surfels, 3)).astype(np.float32)
     pts *= np.array([0.03, 0.04, 0.03], np.float32)
     batch = trainer._next_batch()
-    pts = calibrate_scene(trainer, pts, batch)
+    pts = calibrate_scene(trainer, pts, batch, scene_target(surfels, surface))
     cols = rng.uniform(size=(surfels, 3)).astype(np.float32)
     feats = rng.normal(size=(surfels, 16)).astype(np.float32)
     feats /= np.linalg.norm(feats, axis=-1, keepdims=True)
     t = lambda a: torch.as_tensor(a, device=trainer.device)
     gen = torch.Generator(device=trainer.device).manual_seed(0)
-    trainer.set_surfels(init_from_points(t(pts), t(cols), surfels, sh_degree=3,
+    trainer.set_surfels(init_from_points(t(pts), t(cols), capacity or surfels, sh_degree=3,
                                          generator=gen, regist_feat=t(feats)))
     return trainer, batch
 
@@ -653,6 +741,320 @@ def run_steps(trainer, batch, phases, label):
     return step_ms, counts, last
 
 
+def hook_state(rng, cap, n_alive):
+    """numpy arrays of a surfel store of ``cap`` slots, ``n_alive`` of them
+    alive, in which the densify rules fire (clone, split, opacity, screen-
+    and world-size prune, child prune) and the outlier rule splits the
+    cloud: four clusters of ~radius spread near the origin, a sparse halo.
+    Returns (params dict, state dict, adam moments (mu, nu))."""
+    f = lambda *shape: rng.normal(size=shape).astype(np.float32)
+    n_cl = 3 * cap // 8
+    centres = rng.uniform(-0.05, 0.05, (4, 3))
+    xyz = np.concatenate([c + rng.normal(size=(n_cl // 4, 3)) * 0.002 for c in centres]
+                         + [rng.uniform(-0.2, 0.2, (cap - n_cl // 4 * 4, 3))])
+    params = {
+        "xyz": xyz.astype(np.float32), "features_dc": f(cap, 1, 3),
+        "features_rest": f(cap, 15, 3) * 0.1,
+        "scaling": np.log(10 ** rng.uniform(-3.3, -0.95, (cap, 2))).astype(np.float32),
+        "rotation": f(cap, 4), "opacity": f(cap, 1) * 2.0 - 2.0, "regist_feat": f(cap, 16),
+    }
+    denom = rng.integers(0, 6, cap).astype(np.float32)
+    grads = 2e-4 * np.exp(rng.normal(size=cap))
+    state = {"alive": rng.permutation(cap) < n_alive,
+             "max_radii2d": rng.uniform(0, 21, cap).astype(np.float32),
+             "grad_accum": (grads * denom).astype(np.float32), "denom": denom}
+    moments = tuple({k: f(*v.shape) * scale for k, v in params.items()}
+                    for scale in (1.0, 0.1))
+    return params, state, moments
+
+
+def hooks_cpu_vs_gpu(rng):
+    """densify_and_prune (size rules on), reset_opacity and
+    radius_outlier_mask from one state (capacity HOOK_CAP, HOOK_ALIVE alive,
+    the same split noise) on the CPU and on the card: info counts and masks
+    equal, float rows within HOOK_TOL (relative above 1), the outlier masks
+    equal except slots with an alive neighbour within the float32 rounding
+    of |q|^2 + |p|^2 - 2 q.p (or 1e-6 r^2) of the radius, listed."""
+    import torch
+
+    from vidu4d_tpu_torch.models.gaussian import densify as dn
+    from vidu4d_tpu_torch.models.gaussian.optimizer import GsAdamState
+    from vidu4d_tpu_torch.models.gaussian.surfels import SurfelParams, SurfelState
+
+    params, state, (mu, nu) = hook_state(rng, HOOK_CAP, HOOK_ALIVE)
+    noise = rng.normal(size=(HOOK_CAP, 2, 2)).astype(np.float32)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        t = lambda a: torch.tensor(a, device=dev)  # a copy: the hooks write in place
+        tree = lambda d: SurfelParams(**{k: t(v) for k, v in d.items()})
+        s = SurfelState(params=tree(params), **{k: t(v) for k, v in state.items()})
+        a = GsAdamState(count=3, mu=tree(mu), nu=tree(nu))
+        s, a, info = dn.densify_and_prune(s, a, t(noise), extent=1.0, max_screen_size=20.0)
+        # copies: on the CPU .numpy() is a view, and reset_opacity writes in place
+        npy = lambda x: x.detach().cpu().numpy().copy()
+        out = {"info": {k: int(v) for k, v in info.items()}, "alive": npy(s.alive)}
+        for group, tr in (("", s.params), ("mu.", a.mu), ("nu.", a.nu)):
+            out.update({group + k: npy(v) for k, v in zip(SurfelParams._fields, tr)})
+        s, a = dn.reset_opacity(s, a)
+        out["reset opacity"] = npy(s.params.opacity)
+        out["outlier"] = npy(dn.radius_outlier_mask(s.params.xyz, s.alive))
+        res[dev] = out
+    cpu, gpu = res["cpu"], res["cuda"]
+    rep = {"info": cpu["info"], "info_gpu": gpu["info"],
+           "alive_equal": bool(np.array_equal(cpu["alive"], gpu["alive"])),
+           "outlier_pruned": int(cpu["outlier"].sum())}
+    errs = {k: float((np.abs(cpu[k] - gpu[k]) / np.maximum(1.0, np.abs(cpu[k]))).max())
+            if cpu[k].size else 0.0
+            for k in cpu if k not in ("info", "alive", "outlier")}
+    rep["max_err"] = max(errs.values())
+    rep["worst"] = max(errs, key=errs.get)
+    # outlier mismatches: slots with a pair at the radius within rounding
+    r2 = 0.004 ** 2
+    xyz = cpu["xyz"].astype(np.float64)
+    sq = (xyz * xyz).sum(-1)
+    boundary, other = [], []
+    for i in np.flatnonzero(cpu["outlier"] != gpu["outlier"]):
+        d2 = ((xyz - xyz[i]) ** 2).sum(-1)
+        band = 1e-6 * r2 + 4 * np.finfo(np.float32).eps * (sq[i] + sq)
+        near = cpu["alive"] & (np.abs(d2 - r2) <= band)
+        (boundary if near.any() else other).append(int(i))
+    rep["outlier_boundary_slots"] = boundary
+    log(f"[hooks cpu-vs-gpu] {json.dumps(rep)} per field {json.dumps(errs)}")
+    if (cpu["info"] != gpu["info"] or not rep["alive_equal"] or rep["max_err"] > HOOK_TOL
+            or other):
+        raise AssertionError(f"[hooks cpu-vs-gpu] the card disagrees with the CPU: {rep}, "
+                             f"outlier slots off the boundary {other}")
+    if not (cpu["info"]["cloned"] and cpu["info"]["split"] and cpu["info"]["pruned"]
+            and 0 < rep["outlier_pruned"] < int(cpu["alive"].sum())):
+        raise AssertionError(f"[hooks cpu-vs-gpu] a rule did not fire: {rep}")
+
+
+def round_path(tmp, rng, surfels, capacity, res):
+    """The Stage-3 round loop on the card at ``capacity`` slots with
+    ``surfels`` alive: `train()` for ROUND_OPTS' 2 rounds (eval render,
+    hooks, checkpoints), the checkpoint reloaded into a fresh trainer
+    (bitwise), then one `train_one_round` in chunks of 3 (ROUND_K3). Times
+    every step, eval render, checkpoint and hook, checks each, and counts
+    the kernel launches from 0; then holds both kernels against their plain
+    versions on the inputs of ROUND_CHECKS, kept from the run. Returns
+    (report, launch counts)."""
+    import torch
+
+    from vidu4d_tpu_torch import kernels
+    from vidu4d_tpu_torch.engine import gs4d_trainer
+    from vidu4d_tpu_torch.engine.gs4d_trainer import Stage3Trainer
+    from vidu4d_tpu_torch.models.gaussian import deformable
+    from vidu4d_tpu_torch.models.gaussian import densify as dn
+    from vidu4d_tpu_torch.models.gaussian.surfels import get_opacity
+
+    sync = torch.cuda.synchronize
+    trainer, _ = build_trainer(os.path.join(tmp, "round"), "cuda", surfels, res,
+                               capacity=capacity, surface=True, **ROUND_OPTS)
+    rec = {"step_ms": [], "render_ms": [], "save_ms": [], "hooks": [], "render_k1": 0,
+           "render_cover": []}
+    kept = {}  # ROUND_CHECKS name -> detached copies of the kernels' inputs
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            rec[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    def keep(fn, where):
+        """composite_batch, keeping the inputs that ROUND_CHECKS names."""
+        def run(prepared, *a, **kw):
+            for name, (w, at) in ROUND_CHECKS.items():
+                if w == where and at == trainer.current_steps and name not in kept:
+                    kept[name] = {k: prepared[k].detach().clone()
+                                  if torch.is_tensor(prepared[k]) else prepared[k]
+                                  for k in KERNEL_INPUTS}
+            return fn(prepared, *a, **kw)
+        return run
+
+    step, render = (timed(trainer.train_step, "step_ms"),
+                    timed(trainer.render_batch, "render_ms"))
+
+    def train_step(*a, **kw):
+        m = step(*a, **kw)
+        bad = [k for k, v in m.items() if not np.isfinite(float(v))]
+        if bad:
+            raise AssertionError(f"[round] step {trainer.current_steps}: non-finite {bad}")
+        return m
+
+    def render_batch(*a, **kw):
+        k1, k2 = kernels.COUNTS["tile_forward"], kernels.COUNTS["tile_backward"]
+        out = render(*a, **kw)
+        if kernels.COUNTS["tile_backward"] != k2:
+            raise AssertionError("[round] the eval render launched the backward kernel")
+        rec["render_k1"] += kernels.COUNTS["tile_forward"] - k1
+        if not all(np.isfinite(v).all() for v in out.values()):
+            raise AssertionError("[round] non-finite eval render")
+        rec["render_cover"].append(float((out["mask"] > 0.01).mean()))
+        return out
+
+    def alive_finite(s):
+        return all(bool(torch.isfinite(p[s.alive]).all()) for p in s.params)
+
+    def hook(name, fn):
+        def run(*a, **kw):
+            n_before = int(a[0].alive.sum()) if name != "outlier" else None
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            ev = {"hook": name, "at_step": trainer.current_steps,
+                  "ms": (time.perf_counter() - t0) * 1e3}
+            if name == "densify":
+                s, _, info = out
+                ev.update(max_screen_size=kw["max_screen_size"], alive_before=n_before,
+                          **{k: int(v) for k, v in info.items()})
+                n = int(s.alive.sum())
+                if not (n == ev["alive"] and n_before - ev["split"] - ev["pruned"] <= n
+                        <= n_before + ev["cloned"] + ev["split"]):
+                    raise AssertionError(f"[round] alive after densify disagrees with "
+                                         f"its counts: {n}, {ev}")
+                if not alive_finite(s):
+                    raise AssertionError(f"[round] non-finite surfels after densify: {ev}")
+            elif name == "reset_opacity":
+                s = out[0]
+                ev["alive_before"] = n_before
+                ev["max_alive_opacity"] = float(torch.where(
+                    s.alive[:, None], get_opacity(s.params).detach(), 0.0).max())
+                if not ev["max_alive_opacity"] <= 0.01 + 1e-6 or not alive_finite(s):
+                    raise AssertionError(f"[round] opacity reset: {ev}")
+            else:
+                ev.update(outliers=int(out.sum()), alive_before=int(a[1].sum()))
+            rec["hooks"].append(ev)
+            return out
+        return run
+
+    trainer.train_step, trainer.render_batch = train_step, render_batch
+    trainer.save_checkpoint = timed(trainer.save_checkpoint, "save_ms")
+    wraps = {(dn, "densify_and_prune"): lambda f: hook("densify", f),
+             (dn, "reset_opacity"): lambda f: hook("reset_opacity", f),
+             (dn, "radius_outlier_mask"): lambda f: hook("outlier", f),
+             (deformable, "composite_batch"): lambda f: keep(f, "render"),
+             (gs4d_trainer, "composite_batch"): lambda f: keep(f, "step")}
+    originals = {key: getattr(*key) for key in wraps}
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    try:
+        for (mod, k), wrap in wraps.items():
+            setattr(mod, k, wrap(originals[mod, k]))
+        trainer.train()
+        save_dir = trainer.save_dir
+        files = {f: os.path.getsize(os.path.join(save_dir, f)) for f in sorted(os.listdir(
+            save_dir)) if f.endswith((".pth", ".ply"))}
+        want = {"ckpt_0001.pth", "ckpt_0002.pth", "ckpt_latest.pth", "point_cloud_0001.ply",
+                "point_cloud_0002.ply"}
+        if not want <= set(files):
+            raise AssertionError(f"[round] checkpoint files: {sorted(files)}")
+        # the last checkpoint into a fresh trainer: bitwise the live state
+        fresh = Stage3Trainer({**trainer.opts, "logname": "reload"}, "cuda")
+        fresh.load_checkpoint(os.path.join(save_dir, "ckpt_latest.pth"), reset_steps=False)
+        pairs = [(f"surfels.{i}", x, y) for i, (x, y) in enumerate(zip(
+            (*trainer.surfels.params, *trainer.surfels[1:]),
+            (*fresh.surfels.params, *fresh.surfels[1:])))]
+        pairs += [(f"adam.{i}", x, y) for i, (x, y) in enumerate(zip(
+            (*trainer.gs_adam.mu, *trainer.gs_adam.nu), (*fresh.gs_adam.mu, *fresh.gs_adam.nu)))]
+        fd = fresh.deformer.state_dict()
+        pairs += [(k, v, fd[k]) for k, v in trainer.deformer.state_dict().items()]
+        differ = [k for k, x, y in pairs if not torch.equal(x, y)]
+        if differ or fresh.gs_adam.count != trainer.gs_adam.count or \
+                fresh.current_steps != trainer.current_steps:
+            raise AssertionError(f"[round] the reloaded checkpoint differs: {differ}")
+        del fresh
+        n_reload = len(pairs)
+        # one more round in chunks of 3, 3, 3 and 2
+        trainer.opts.update(ROUND_K3)
+        sync()
+        t0 = time.perf_counter()
+        trainer.train_one_round()
+        sync()
+        k3_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for (mod, k), fn in originals.items():
+            setattr(mod, k, fn)
+    counts = dict(kernels.COUNTS)
+    # the kernels against their plain versions on the run's own inputs
+    # (after the counts are read: these launches are not the path's)
+    missing = sorted(set(ROUND_CHECKS) - set(kept))
+    if missing:
+        raise AssertionError(f"[round] no kernel inputs kept for {missing}")
+    checks = {}
+    for name, (where, _) in ROUND_CHECKS.items():
+        b = kept.pop(name)
+        r = compare_kernels(b, rng, f"round: {name}")
+        checks[name] = {"frames": b["tile_start"].shape[0] // b["tiles_per_frame"],
+                        "n_extra": b["n_extra"], "entries": r["entries"],
+                        "max_tile": r["max_tile"], "fwd_max_abs_err": r["fwd_max_abs_err"],
+                        "bwd_max_abs_err": r["bwd_max_abs_err"]}
+        del b
+    n_steps = len(rec["step_ms"])
+    fired = [(h["hook"], h["step"], e["at_step"]) for h, e in zip(trainer.hook_log,
+                                                                   rec["hooks"])]
+    by_hook = {}
+    for e in rec["hooks"]:
+        by_hook.setdefault(e["hook"], []).append(round(e["ms"], 3))
+    rep = {
+        "capacity": capacity, "alive_start": surfels, "res": res, "steps": n_steps,
+        "alive_end": int(trainer.surfels.alive.sum()),
+        "step_ms_median": float(np.median(rec["step_ms"])),
+        "step_ms": [round(x, 3) for x in rec["step_ms"]],
+        "round_wall_ms": [round(s * 1e3, 3) for s in trainer.round_seconds],
+        "k3_round_ms": round(k3_ms, 3),
+        "eval_render_ms": [round(x, 3) for x in rec["render_ms"]],
+        "eval_render_cover": rec["render_cover"],
+        "save_ms": [round(x, 3) for x in rec["save_ms"]], "file_bytes": files,
+        "hook_ms": by_hook, "fired": fired, "reload_tensors_equal": n_reload,
+        "eval_render_k1": rec["render_k1"], "counts": counts, "kernel_checks": checks,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+    }
+    for e in rec["hooks"]:
+        log(f"[round hook] {json.dumps(e)}")
+    log(f"[round] {json.dumps(rep)}")
+    dens = [e for e in rec["hooks"] if e["hook"] == "densify"]
+    problems = []
+    n_rounds = ROUND_OPTS["num_rounds"]
+    if n_steps != n_rounds * ROUND_OPTS["iters_per_round"] + ROUND_K3["iters_per_round"]:
+        problems.append(f"{n_steps} steps")
+    if fired != ROUND_FIRED or len(rec["hooks"]) != len(trainer.hook_log):
+        problems.append(f"hooks fired (hook, step, run after step) {fired}, "
+                        f"expected {ROUND_FIRED}")
+    if not any(e["cloned"] + e["split"] for e in dens):
+        problems.append("no densify cloned or split")
+    # alive moves only by the hooks' counts: densify to its "alive", the
+    # outlier prune by its outliers
+    expect = surfels
+    for e in rec["hooks"]:
+        if e["alive_before"] != expect:
+            problems.append(f"alive {e['alive_before']} before {e}, expected {expect}")
+        expect = {"densify": e.get("alive"), "outlier": expect - e.get("outliers", 0),
+                  "reset_opacity": expect}[e["hook"]]
+    if rep["alive_end"] != expect:
+        problems.append(f"alive {rep['alive_end']} at the end, expected {expect}")
+    if [e["max_screen_size"] for e in dens] != [0.0, 0.0, 0.0, 20.0, 20.0]:
+        problems.append("the size rules are not on from step 40")
+    if len(rec["render_ms"]) != n_rounds or rec["render_k1"] != n_rounds:
+        problems.append("one eval render per round")
+    if min(rec["render_cover"]) < ROUND_MIN_COVER:
+        problems.append(f"an eval render misses the cloud: cover {rec['render_cover']}")
+    if (counts["tile_forward"] != n_steps + n_rounds or counts["tile_backward"] != n_steps
+            or counts["tile_forward_plain"] or counts["tile_backward_plain"]):
+        problems.append(f"launch counts {counts}")
+    shapes = {name: (c["frames"], c["n_extra"]) for name, c in checks.items()}
+    if shapes != {name: (1, 0) if where == "render" else (2, 2)
+                  for name, (where, _) in ROUND_CHECKS.items()}:
+        problems.append(f"kernel checks' (frames, extra channels) {shapes}")
+    if problems:
+        raise AssertionError(f"[round] {problems}")
+    return rep, counts
+
+
 def main() -> int:
     import torch
 
@@ -752,6 +1154,12 @@ def main() -> int:
         if not {"rgb", "depth", "mask"} <= set(red_last[-1]) or "flow" in red_last[-1]:
             raise AssertionError(f"reduced path loss terms: {sorted(red_last[-1])}")
         del trainer, batch
+        torch.cuda.empty_cache()
+
+        # the round loop at the JAX default capacity
+        hooks_cpu_vs_gpu(rng)
+        round_rep, round_counts = round_path(tmp, rng, MAIN_SURFELS, ROUND_CAPACITY,
+                                             MAIN_RES)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -763,7 +1171,11 @@ def main() -> int:
          "launches": counts[name], "max_abs_err": main_cmp[f"{key}_max_abs_err"],
          "ms": main_cmp[f"{key}_ms"], "plain_ms": main_cmp[f"{key}_plain_ms"],
          "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
-         "library_ms": None, "deep_chain_ms": deep_cmp[f"{key}_ms"]}
+         "library_ms": None, "deep_chain_ms": deep_cmp[f"{key}_ms"],
+         "round_launches": round_counts[name],
+         "round_max_abs_err": max(c[f"{key}_max_abs_err"]
+                                  for c in round_rep["kernel_checks"].values()),
+         "eval_render_launches": round_rep["eval_render_k1"] if key == "fwd" else 0}
         for name, key, replaces in (
             ("tile_forward", "fwd", "vidu4d_tpu/ops/rasterize/pallas_kernel.py:111"),
             ("tile_backward", "bwd", "vidu4d_tpu/ops/rasterize/pallas_backward.py:95"))
@@ -771,7 +1183,10 @@ def main() -> int:
     log(f"[summary] {card}: median step {main_ms:.3f} ms (default configuration), "
         f"{float(np.median(red_ms)):.3f} ms (reduced); "
         f"tile_forward {main_cmp['fwd_ms']:.3f} ms (plain {main_cmp['fwd_plain_ms']:.3f}); "
-        f"tile_backward {main_cmp['bwd_ms']:.3f} ms (plain {main_cmp['bwd_plain_ms']:.3f})")
+        f"tile_backward {main_cmp['bwd_ms']:.3f} ms (plain {main_cmp['bwd_plain_ms']:.3f}); "
+        f"round path at capacity {ROUND_CAPACITY}: median step "
+        f"{round_rep['step_ms_median']:.3f} ms, rounds {round_rep['round_wall_ms']} ms "
+        f"+ {round_rep['k3_round_ms']} ms")
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -132,7 +132,7 @@ def test_pair_sampler_matches_pair_batcher(tmp_path):
 @pytest.mark.parametrize("bad", [
     {"gs_init_mesh": "mesh-geo.obj"}, {"single_inst": False},
     {"fg_motion": "gs-dense"}, {"pixels_per_image": 16}, {"ngpu": 2},
-    {"raster_impl": "tiles"},
+    {"raster_impl": "tiles"}, {"load_path": "logdir/toy-s2/ckpt_latest.pth"},
 ])
 def test_unported_options_raise(tmp_path, bad):
     db = make_fake_db(tmp_path, num_vids=1, T=8, H=16, W=16)

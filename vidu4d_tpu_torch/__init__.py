@@ -2,7 +2,8 @@
 
 The JAX package (``vidu4d_tpu``) is the reference; this package mirrors its
 module layout (``ops/``, ``ops/rasterize/``, ``models/fields/``,
-``models/gaussian/``, ``engine/``, ``data/``) and never imports ``jax``. The two TPU
+``models/gaussian/``, ``engine/``, ``data/``, ``utils/``) and never imports
+``jax``. The two TPU
 Pallas rasterizer kernels are replaced by hand-written CUDA kernels for
 Hopper (``csrc/``), each with a plain PyTorch version beside it that tensors
 on the CPU run through.

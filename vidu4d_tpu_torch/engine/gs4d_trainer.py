@@ -12,35 +12,47 @@ One step (`train_step`) of the JAX trainer's default configuration
   (after 8k steps) -> backward -> densify statistics -> surfel Adam and
   the warp AdamW.
 
+The round loop around it (`train`, `train_one_round`): an eval render per
+round (`render_batch`, the forward kernel only), the densify / prune /
+opacity-reset / radius-outlier hooks at the JAX cadence (`_densify_hooks`),
+the opt-in gradient-spike rollback, and per-round checkpoints (pickled
+numpy payloads) with a 3DGS ``.ply`` of the alive surfels.
+
 ``--nogs_optim_warp``, ``--rgb_loss_only`` and ``--flow_wt 0`` switch the
 corresponding parts off. Options the port does not have yet raise
-NotImplementedError; none is ignored. The round loop, densify/prune hooks,
-checkpoints and CLIs are later work.
+NotImplementedError; none is ignored.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import pickle
+import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from vidu4d_tpu_torch import convert
 from vidu4d_tpu_torch.data import data_utils
 from vidu4d_tpu_torch.engine import losses as losses_mod
 from vidu4d_tpu_torch.engine.optim import WarpAdamW
 from vidu4d_tpu_torch.engine.schedules import progress_schedule
 from vidu4d_tpu_torch.models.fields.skinning import arap_bone_loss
+from vidu4d_tpu_torch.models.gaussian import densify as densify_mod
 from vidu4d_tpu_torch.models.gaussian import surfels as sf
 from vidu4d_tpu_torch.models.gaussian.deformable import (
     GaussianDeformer,
     prepare_surfels_batch,
+    render_surfels_batch,
 )
 from vidu4d_tpu_torch.models.gaussian.optimizer import (
     GsLearningRates,
     gs_adam_init,
     gs_adam_update,
 )
+from vidu4d_tpu_torch.models.gaussian.ply_io import save_ply
 from vidu4d_tpu_torch.ops import geometry as geom
 from vidu4d_tpu_torch.ops.depth_normal import surf_depth_and_normal
 from vidu4d_tpu_torch.ops.image_losses import ssim
@@ -50,6 +62,9 @@ from vidu4d_tpu_torch.ops.rasterize import RasterizeConfig
 from vidu4d_tpu_torch.ops.rasterize.common import compute_tile_rects, project_splats
 from vidu4d_tpu_torch.ops.rasterize.tile_backward import composite_batch
 from vidu4d_tpu_torch.ops.rasterize.tile_forward import TILE
+from vidu4d_tpu_torch.utils.camera_trajectories import construct_batch
+from vidu4d_tpu_torch.utils.logging import ScalarLogger, dump_opts_json
+from vidu4d_tpu_torch.utils.profiler import round_trace
 
 
 def check_supported(opts: Dict) -> None:
@@ -63,6 +78,7 @@ def check_supported(opts: Dict) -> None:
         (o.get("raster_tile", 16) != 16, "raster_tile != 16"),
         (o.get("pixels_per_image", -1) != -1, "pixels_per_image != -1"),
         (bool(o.get("gs_init_mesh")), "gs_init_mesh (mesh surfel init)"),
+        (bool(o.get("load_path")), "load_path (Stage-2 checkpoint transfer)"),
         (not o.get("single_inst", True), "single_inst=False"),
         (o.get("fg_motion", "gs-bob") != "gs-bob",
          f"fg_motion={o.get('fg_motion')!r} (the port has gs-bob only)"),
@@ -70,6 +86,14 @@ def check_supported(opts: Dict) -> None:
     missing = [what for bad, what in unsupported if bad]
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
+
+
+def cadence_due(it: int, span: int, interval: int) -> Optional[int]:
+    """Largest positive multiple of ``interval`` inside the window of the
+    steps just taken, (it - span, it], or None (`gs4d_trainer.py:137`): a
+    chunk of several steps, or a short final chunk, never skips a hook."""
+    m = (it // interval) * interval
+    return m if m > it - span and m > 0 else None
 
 
 def uniform_pixel_subsample(n_total: int, n_px: int, train_res: int,
@@ -108,19 +132,27 @@ class PairSampler:
 
 
 class Stage3Trainer:
-    """Stage-3 trainer state + one training step, on ``device``.
+    """Stage-3 trainer state, its step and its round loop, on ``device``
+    (the card by default; the CPU, where the kernels' plain versions run,
+    only when asked for with ``device="cpu"``).
 
     opts: the JAX trainer's option dict (`bench.py:78-96` builds one).
     Parameters are drawn from a ``torch.Generator`` seeded with
     ``opts["seed"]``; tests replace them with converted JAX parameters
     (`vidu4d_tpu_torch.convert`). ``current_steps`` counts the steps
-    taken; it switches the 2DGS regularisers on after 8k."""
+    taken; it switches the 2DGS regularisers on after 8k. The run's
+    directory, ``<logroot>/<seqname>-<logname>``, is created with the
+    options in ``opts.json``."""
 
-    def __init__(self, opts: Dict, device, datasets=None, data_info=None):
+    def __init__(self, opts: Dict, device="cuda", datasets=None, data_info=None):
         check_supported(opts)
         self.opts = dict(opts)
         opts = self.opts
         self.device = torch.device(device)
+        self.save_dir = os.path.join(opts.get("logroot", "logdir"),
+                                     f"{opts['seqname']}-{opts['logname']}")
+        os.makedirs(self.save_dir, exist_ok=True)
+        dump_opts_json(self.save_dir, opts)
         seed = max(opts.get("seed", 0), 0)
         if datasets is None:
             # the JAX trainer's single-host dataset rng (data_utils.py:38-42)
@@ -173,6 +205,13 @@ class Stage3Trainer:
                 intrinsics_lr_mult=opts.get("intrinsics_lr_mult", 1.0),
             )
         self.current_steps = 0
+        self.current_round = 0
+        # per-round snapshots of the last two rounds (rollback_on_grad_spike)
+        self._rollback_cache = [None, None]
+        # the hooks that fired: {"hook", "step", and its counts (0-d tensors)}
+        self.hook_log = []
+        # wall seconds of each round of `train` (its "Round NNN: time=")
+        self.round_seconds = []
         self.raster_cfg = RasterizeConfig(
             span_cap=opts.get("raster_span_cap", 4),
             entry_cap=int(opts.get("raster_entry_cap", 2 ** 19) or 0),
@@ -434,3 +473,256 @@ class Stage3Trainer:
             "overflow_splats": overflow,
             "truncated_entries": truncated,
         }
+
+    # ------------------------------------------------------------------
+    # the round loop
+    # ------------------------------------------------------------------
+
+    def _split_noise(self, m: int, shape) -> torch.Tensor:
+        """Standard normal offsets of the split children of the densify at
+        step m, from a generator seeded with m on the trainer's device (the
+        JAX package draws them from PRNGKey(m); the streams differ)."""
+        gen = torch.Generator(device=self.device).manual_seed(m)
+        return torch.randn(shape, generator=gen, device=self.device)
+
+    def _densify_hooks(self, span: int = 1) -> None:
+        """Densify / opacity reset / outlier prune at the JAX cadence
+        (`gs4d_trainer.py:830-875`). ``span`` is the number of steps just
+        taken: a hook fires when a multiple of its interval lies in
+        (current_steps - span, current_steps]. Each firing is appended to
+        ``hook_log``."""
+        o = self.opts
+        it = self.current_steps
+        until = o.get("densify_until_iter", 15000)
+        reset_every = o.get("opacity_reset_interval", 3000)
+        m = cadence_due(it, span, o.get("densification_interval", 100))
+        if m is not None and o.get("densify_from_iter", 500) < m < until:
+            # the screen- and world-size prune only after the first reset
+            size_thr = 20.0 if m > reset_every else 0.0
+            self.surfels, self.gs_adam, info = densify_mod.densify_and_prune(
+                self.surfels, self.gs_adam, self._split_noise(m, (self.surfels.capacity, 2, 2)),
+                extent=o.get("cameras_extent", 1.0), max_screen_size=size_thr,
+                config=densify_mod.DensifyConfig(
+                    grad_threshold=o.get("densify_grad_threshold", 2e-4),
+                    min_opacity=0.005, percent_dense=o.get("percent_dense", 0.01)))
+            self.hook_log.append({"hook": "densify", "step": m, **info})
+        m = cadence_due(it, span, reset_every)
+        if m is not None and m < until:
+            self.surfels, self.gs_adam = densify_mod.reset_opacity(self.surfels, self.gs_adam)
+            self.hook_log.append({"hook": "reset_opacity", "step": m})
+        m = cadence_due(it, span, o.get("outlier_filtering_interval", 2000))
+        if m is not None and m < o.get("outlier_stop_iter", 29000):
+            mask = densify_mod.radius_outlier_mask(self.surfels.params.xyz, self.surfels.alive,
+                                                   nb_points=20, radius=0.004)
+            self.surfels = densify_mod.prune_by_mask(self.surfels, mask)
+            self.hook_log.append({"hook": "outlier", "step": m,
+                                  "pruned": torch.sum(mask.to(torch.int64))})
+
+    def train_one_round(self, log_fn: Optional[Callable] = None) -> Dict:
+        """``iters_per_round`` steps with the hooks (`gs4d_trainer.py:782-828`).
+        With ``iters_per_dispatch`` k > 1 the hooks run once after every k
+        steps, and after a short final chunk, with span k, as after the JAX
+        trainer's scanned chunks; ``rollback_on_grad_spike`` forces k = 1
+        and may discard a step. log_fn(step, {name: float}) is called when
+        a multiple of 100 steps was passed. Returns the last step's
+        metrics."""
+        opts = self.opts
+        rollback = opts.get("rollback_on_grad_spike", False)
+        iters = opts.get("iters_per_round", 200)
+        k = int(opts.get("iters_per_dispatch", 1) or 1)
+        if rollback:
+            k = 1  # rollback reads every step's gnorm
+        metrics = None
+        done = 0
+        while done < iters:
+            kk = min(k, iters - done)
+            for _ in range(kk):
+                metrics = self.train_step()
+            if rollback and self._maybe_rollback(metrics["gnorm"]):
+                self.current_steps -= 1  # the step is discarded
+                continue
+            done += kk
+            self._densify_hooks(span=kk)
+            if log_fn is not None and self.current_steps % 100 < kk:
+                log_fn(self.current_steps, {n: float(v) for n, v in metrics.items()})
+        return metrics
+
+    def _snapshot(self) -> Dict:
+        """Clones of the trainable state: the surfel store and its Adam,
+        the deformer's state_dict and the warp AdamW's state."""
+        c = lambda x: x.detach().clone()
+        s, a = self.surfels, self.gs_adam
+        snap = {
+            "surfels": sf.SurfelState(sf.SurfelParams(*map(c, s.params)), *map(c, s[1:])),
+            "gs_adam": a._replace(mu=sf.SurfelParams(*map(c, a.mu)),
+                                  nu=sf.SurfelParams(*map(c, a.nu))),
+            "deformer": {k: c(v) for k, v in self.deformer.state_dict().items()},
+        }
+        if self.warp_opt is not None:
+            w = self.warp_opt
+            snap["warp_opt"] = {"count": w.count, "mu": {k: c(v) for k, v in w.mu.items()},
+                                "nu": {k: c(v) for k, v in w.nu.items()}}
+        return snap
+
+    @torch.no_grad()
+    def _restore(self, snap: Dict) -> None:
+        """Copy a `_snapshot` into the live state; the snapshot stays
+        untouched and the optimisers keep their parameter tensors."""
+        s, a = snap["surfels"], snap["gs_adam"]
+        for dst, src in zip((*self.surfels.params, *self.gs_adam.mu, *self.gs_adam.nu),
+                            (*s.params, *a.mu, *a.nu)):
+            dst.copy_(src)
+        self.surfels = sf.SurfelState(self.surfels.params, *(x.clone() for x in s[1:]))
+        self.gs_adam = self.gs_adam._replace(count=a.count)
+        self.deformer.load_state_dict(snap["deformer"])
+        if self.warp_opt is not None:
+            w = snap["warp_opt"]
+            self.warp_opt.load_state({"count": w["count"],
+                                      "mu": {k: v.clone() for k, v in w["mu"].items()},
+                                      "nu": {k: v.clone() for k, v in w["nu"].items()}})
+
+    def _update_rollback_cache(self) -> None:
+        """Two-deep per-round snapshot (`gs4d_trainer.py:713`). Only
+        `_maybe_rollback` reads it, so nothing is copied without
+        ``rollback_on_grad_spike``."""
+        if self.opts.get("rollback_on_grad_spike", False):
+            self._rollback_cache = [self._rollback_cache[1], self._snapshot()]
+
+    def _maybe_rollback(self, gnorm) -> bool:
+        """Gradient-spike rollback to the state of two rounds ago when
+        gnorm > ``grad_spike_thresh`` (`gs4d_trainer.py:720`)."""
+        thresh = self.opts.get("grad_spike_thresh", 5.0)
+        if float(gnorm) <= thresh or self._rollback_cache[0] is None:
+            return False
+        print(f"large grad: {float(gnorm):.2f}, resume from cached weights")
+        self._restore(self._rollback_cache[0])
+        return True
+
+    def train(self, log_fn: Optional[Callable] = None) -> None:
+        """Rounds ``current_round`` .. ``num_rounds`` - 1 (`gs4d_trainer.py:877`):
+        an eval render of frame 0 to the logger, `train_one_round` (traced
+        with ``opts["profile"]``), a checkpoint every ``save_freq`` rounds
+        and after the last, and one line per round."""
+        logger = ScalarLogger(self.save_dir)
+        if log_fn is None:
+            log_fn = logger.log_loss_dict
+        num_rounds = self.opts.get("num_rounds", 60)
+        save_freq = self.opts.get("save_freq", 10)
+        try:
+            for rnd in range(self.current_round, num_rounds):
+                self._update_rollback_cache()
+                t0 = time.time()
+                eval_batch = construct_batch(inst_id=0, frameid_sub=np.arange(1),
+                                             eval_res=self.res, field2cam=None,
+                                             camera_int=None, crop2raw=None,
+                                             device=self.device)
+                rendered = self.render_batch(eval_batch, res=self.res)
+                logger.image(rnd, "eval/rendered", rendered["rendered"][0])
+                logger.image(rnd, "eval/mask", rendered["mask"][0])
+                first_hook = len(self.hook_log)
+                with round_trace(self.save_dir, rnd, enabled=self.opts.get("profile", False),
+                                 device=self.device):
+                    metrics = self.train_one_round(log_fn=log_fn)
+                self.current_round = rnd + 1
+                if self.current_round % save_freq == 0 or self.current_round == num_rounds:
+                    self.save_checkpoint(self.current_round)
+                overflow = int(metrics["overflow_splats"])
+                truncated = int(metrics["truncated_entries"])
+                cover = ""
+                if overflow or truncated:
+                    cover = (f" [coverage: {overflow} span-clamped splats,"
+                             f" {truncated} budget-dropped entries]")
+                self.round_seconds.append(time.time() - t0)
+                print(f"Round {rnd:03d}: time={self.round_seconds[-1]:.3f}s "
+                      f"total={float(metrics['total']):.4f} "
+                      f"alive={int(metrics['alive'])}{cover}"
+                      f"{hooks_note(self.hook_log[first_hook:])}")
+        finally:
+            logger.close()
+
+    # ------------------------------------------------------------------
+    # rendering and checkpoints
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def render_batch(self, batch: Dict, res: Optional[int] = None,
+                     no_warp: bool = False) -> Dict[str, np.ndarray]:
+        """Render the frames of a `construct_batch` dict
+        (`gs4d_trainer.py:924-967`), forward only (one launch of the
+        forward tile kernel): (M, res, res, c) numpy arrays "rendered" (the
+        background composited by the kernel), "mask", "depth", "normal",
+        "median_depth". no_warp: the canonical surfels."""
+        res = res or self.res
+        batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        if "frameid" not in batch:
+            offset = torch.as_tensor(self.frame_info.frame_offset_raw, device=self.device)
+            batch["frameid"] = batch["frameid_sub"] + offset[batch["dataid"].long()]
+        d = self.deformer
+        sp = self.surfels.params
+        samples = d.get_samples(batch)
+        xyz_cam, rot_cam, _ = d.warp_surfels(sp.xyz, sf.get_rotation(sp), samples,
+                                             no_warp=no_warp)
+        intrins = geom.mat2K(geom.Kmatinv(samples["Kinv"]))
+        out = render_surfels_batch(sp, self.surfels.alive, xyz_cam, rot_cam, intrins, res,
+                                   res, self.opts.get("sh_degree", 3), d.background(),
+                                   self.raster_cfg)
+        result = {"rendered": out.color, "mask": out.alpha[..., None],
+                  "depth": out.depth[..., None], "normal": out.normal,
+                  "median_depth": out.median_depth[..., None]}
+        return {k: v.cpu().numpy() for k, v in result.items()}
+
+    def save_checkpoint(self, round_count: int) -> None:
+        """Write ``ckpt_NNNN.pth`` and ``ckpt_latest.pth`` and the alive
+        surfels as ``point_cloud_NNNN.ply`` (`gs4d_trainer.py:969-988`).
+        The payload has the JAX package's keys: "current_steps",
+        "current_round", "params" (the deformer, by state_dict name),
+        "surfels", "gs_adam", "opts", and no warp-optimiser state; it holds
+        only dicts of numpy arrays and Python values, so reading it needs
+        neither this package nor torch."""
+        npy = lambda x: x.detach().cpu().numpy()
+        fields = lambda tree: {f: npy(v) for f, v in zip(sf.SurfelParams._fields, tree)}
+        s, a = self.surfels, self.gs_adam
+        payload = {
+            "current_steps": self.current_steps,
+            "current_round": round_count,
+            "params": {k: npy(v) for k, v in self.deformer.state_dict().items()},
+            "surfels": {"params": fields(s.params),
+                        **{f: npy(getattr(s, f)) for f in sf.SurfelState._fields[1:]}},
+            "gs_adam": {"count": a.count, "mu": fields(a.mu), "nu": fields(a.nu)},
+            "opts": {k: v for k, v in self.opts.items() if not callable(v)},
+        }
+        data = pickle.dumps(payload, protocol=pickle.HIGHEST_PROTOCOL)
+        for name in (f"ckpt_{round_count:04d}.pth", "ckpt_latest.pth"):
+            with open(os.path.join(self.save_dir, name), "wb") as f:
+                f.write(data)
+        save_ply(os.path.join(self.save_dir, f"point_cloud_{round_count:04d}.ply"),
+                 sf.SurfelParams(**payload["surfels"]["params"]), payload["surfels"]["alive"])
+
+    def load_checkpoint(self, path: str, reset_steps: bool = True) -> Dict:
+        """Load a `save_checkpoint` file (`gs4d_trainer.py:990`): the
+        deformer (in place, so the warp AdamW keeps its parameters; its
+        moments are not in the file and stay as they are), the surfel store
+        and its Adam; the step and round counters too unless
+        ``reset_steps``. Returns the payload."""
+        with open(path, "rb") as f:
+            payload = pickle.load(f)
+        self.deformer.load_state_dict({k: torch.as_tensor(v)
+                                       for k, v in payload["params"].items()})
+        self.surfels = convert.surfel_state_from_jax(payload["surfels"], self.device)
+        self.gs_adam = convert.gs_adam_from_jax(payload["gs_adam"], self.device)
+        if not reset_steps:
+            self.current_steps = payload["current_steps"]
+            self.current_round = payload["current_round"]
+        return payload
+
+
+def hooks_note(events) -> str:
+    """The hooks of a round for its console line, e.g.
+    `` [hooks: densify@40 cloned=3 split=5 ...; outlier@40 pruned=2]``."""
+    if not events:
+        return ""
+    parts = []
+    for e in events:
+        counts = " ".join(f"{k}={int(v)}" for k, v in e.items() if k not in ("hook", "step"))
+        parts.append(f"{e['hook']}@{e['step']}" + (f" {counts}" if counts else ""))
+    return " [hooks: " + "; ".join(parts) + "]"

@@ -30,7 +30,8 @@ from vidu4d_tpu_torch.ops.quaternion import (
 )
 from vidu4d_tpu_torch.ops.rasterize import RasterizeConfig
 from vidu4d_tpu_torch.ops.rasterize.common import project_splats
-from vidu4d_tpu_torch.ops.rasterize.tile_backward import prepare_batch
+from vidu4d_tpu_torch.ops.rasterize.compositing import CompositeOutput
+from vidu4d_tpu_torch.ops.rasterize.tile_backward import composite_batch, prepare_batch
 
 
 class GaussianDeformer(nn.Module):
@@ -52,12 +53,19 @@ class GaussianDeformer(nn.Module):
             flax_default_init_(self, generator)
 
     def get_samples(self, batch: Dict[str, torch.Tensor]) -> Dict:
-        """Camera + articulation cache (`deformable.py:63`)."""
+        """Camera + articulation cache (`deformable.py:63`). A batch
+        "field2cam" (M, 7) (quaternion, translation) replaces the camera
+        MLP's, its translation scaled by exp(logscale)."""
         frame_id = batch["frameid"]
         kmat = self.intrinsics(frame_id)
         t_art, rest_art = self.warp.articulation.vals_and_mean(frame_id)
+        if "field2cam" in batch:
+            field2cam = (batch["field2cam"][..., :4],
+                         batch["field2cam"][..., 4:] * torch.exp(self.logscale))
+        else:
+            field2cam = self.camera_mlp(frame_id)
         samples = {
-            "field2cam": self.camera_mlp(frame_id),
+            "field2cam": field2cam,
             "frame_id": frame_id,
             "inst_id": batch["dataid"],
             "Kinv": geom.K2inv(kmat) @ geom.K2mat(batch["crop2raw"]),
@@ -70,13 +78,17 @@ class GaussianDeformer(nn.Module):
         return samples
 
     def warp_surfels(self, xyz: torch.Tensor, rotation: torch.Tensor,
-                     samples: Dict):
+                     samples: Dict, no_warp: bool = False):
         """Canonical surfels (P, 3), (P, 4) -> camera space at each batch
-        frame: xyz_cam (M, P, 3), rot_cam (M, P, 4), aux dict of (M, P, 1)."""
+        frame: xyz_cam (M, P, 3), rot_cam (M, P, 4), aux dict of (M, P, 1).
+        no_warp: the canonical surfels, through the camera only (aux {})."""
         xyz_b = xyz[None].expand(samples["frame_id"].shape[0], *xyz.shape)
-        (q_w, t_w), aux = self._warp_qt(xyz_b, samples)
-        xyz_t = quaternion_translation_apply(q_w, t_w, xyz_b)
-        rot_t = quaternion_mul(q_w, rotation[None])
+        if no_warp:
+            xyz_t, rot_t, aux = xyz_b, rotation[None], {}
+        else:
+            (q_w, t_w), aux = self._warp_qt(xyz_b, samples)
+            xyz_t = quaternion_translation_apply(q_w, t_w, xyz_b)
+            rot_t = quaternion_mul(q_w, rotation[None])
         q_f, t_f = samples["field2cam"]
         xyz_cam = quaternion_translation_apply(q_f[:, None], t_f[:, None], xyz_t)
         rot_cam = quaternion_mul(q_f[:, None], rot_t)
@@ -190,3 +202,25 @@ def prepare_surfels_batch(
         proj_b, colors, sf.get_opacity(params)[:, 0], bg_color, height, width,
         span_cap=config.span_cap, entry_cap=config.entry_cap,
     )
+
+
+@torch.no_grad()
+def render_surfels_batch(
+    params: sf.SurfelParams,
+    alive: torch.Tensor,
+    xyz_cam: torch.Tensor,  # (M, P, 3)
+    rot_cam: torch.Tensor,  # (M, P, 4)
+    intrins: torch.Tensor,  # (M, 4)
+    height: int,
+    width: int,
+    sh_degree: int,
+    bg_color: torch.Tensor,  # (3,)
+    config: RasterizeConfig,
+) -> CompositeOutput:
+    """Forward-only render of the warped surfels of every batch frame (the
+    JAX package's `render_surfels_batch`, `deformable.py:259`, on its
+    "pallas_grad" path): one launch of the forward tile kernel for all M
+    frames and no backward. Returns a CompositeOutput of (M, H, W, ...)."""
+    prepared = prepare_surfels_batch(params, alive, xyz_cam, rot_cam, intrins, height,
+                                     width, sh_degree, bg_color, config)
+    return composite_batch(prepared, height, width)

@@ -16,7 +16,7 @@ import torch
 
 from vidu4d_tpu_torch.ops import sh as sh_ops
 from vidu4d_tpu_torch.ops.knn import mean_knn_sq_dist
-from vidu4d_tpu_torch.ops.numerics import safe_normalize
+from vidu4d_tpu_torch.ops.numerics import safe_norm, safe_normalize
 
 
 class SurfelParams(NamedTuple):
@@ -61,6 +61,10 @@ def get_rotation(p: SurfelParams) -> torch.Tensor:
 def get_features(p: SurfelParams) -> torch.Tensor:
     """(N, K, 3) SH coefficients."""
     return torch.cat([p.features_dc, p.features_rest], dim=1)
+
+
+def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.log(x / (1.0 - x))
 
 
 def init_from_points(
@@ -112,4 +116,18 @@ def init_from_points(
     return SurfelState(
         params=params, alive=torch.arange(capacity, device=dev) < n,
         max_radii2d=zeros, grad_accum=zeros.clone(), denom=zeros.clone(),
+    )
+
+
+def add_densification_stats(state: SurfelState, viewspace_grad: torch.Tensor,
+                            visible: torch.Tensor, radii: torch.Tensor) -> SurfelState:
+    """Accumulate per-splat viewspace gradient norms (N, 2) and track the
+    max screen radii of the visible alive splats (`surfels.py:137`)."""
+    norm = safe_norm(viewspace_grad, dim=-1)
+    vis = visible & state.alive
+    return state._replace(
+        grad_accum=state.grad_accum + torch.where(vis, norm, 0.0),
+        denom=state.denom + vis.to(state.denom.dtype),
+        max_radii2d=torch.where(vis, torch.maximum(state.max_radii2d, radii),
+                                state.max_radii2d),
     )

@@ -39,6 +39,14 @@ def Kmatinv(Kmat: torch.Tensor) -> torch.Tensor:
     return K2inv(mat2K(Kmat))
 
 
+def hxy_grid(H: int, W: int, device=None, dtype=torch.float32) -> torch.Tensor:
+    """Homogeneous pixel-centre grid, (H*W, 3) rows of (x, y, 1) in raster
+    order (`geometry.py:88`)."""
+    yy, xx = torch.meshgrid(torch.arange(H, dtype=dtype, device=device),
+                            torch.arange(W, dtype=dtype, device=device), indexing="ij")
+    return torch.stack([xx, yy, torch.ones_like(xx)], dim=-1).reshape(-1, 3)
+
+
 def pinhole_projection(Kmat: torch.Tensor, xyz_cam: torch.Tensor) -> torch.Tensor:
     """Camera-space points (M, ..., 3) -> homogeneous pixel coordinates
     (M, ..., 3) under intrinsics (M, 3, 3) (`geometry.py:20`). The

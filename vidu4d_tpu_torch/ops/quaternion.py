@@ -2,7 +2,7 @@
 
 Convention: real part first, ``q = (w, x, y, z)``. A dual quaternion is a
 pair ``(q_r, q_d)`` of real/dual parts. All functions broadcast over leading
-dimensions. Only what the Stage-3 surfel step reaches is ported.
+dimensions. Only what the Stage-3 step and its round loop reach is ported.
 """
 
 from __future__ import annotations
@@ -86,6 +86,34 @@ def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return o.reshape(q.shape[:-1] + (3, 3))
+
+
+def _sqrt_positive_part(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x > 0, torch.sqrt(torch.clamp(x, min=1e-24)), torch.zeros_like(x))
+
+
+def matrix_to_quaternion(matrix: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation matrices -> (w, x, y, z) quaternions: the
+    best-conditioned of the four candidates (`quaternion.py:127`)."""
+    m00, m01, m02, m10, m11, m12, m20, m21, m22 = \
+        matrix.reshape(matrix.shape[:-2] + (9,)).unbind(-1)
+    q_abs = _sqrt_positive_part(torch.stack([
+        1.0 + m00 + m11 + m22, 1.0 + m00 - m11 - m22,
+        1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], dim=-1))
+    cands = torch.stack([
+        torch.stack([q_abs[..., 0] ** 2, m21 - m12, m02 - m20, m10 - m01], dim=-1),
+        torch.stack([m21 - m12, q_abs[..., 1] ** 2, m10 + m01, m02 + m20], dim=-1),
+        torch.stack([m02 - m20, m10 + m01, q_abs[..., 2] ** 2, m12 + m21], dim=-1),
+        torch.stack([m10 - m01, m20 + m02, m21 + m12, q_abs[..., 3] ** 2], dim=-1),
+    ], dim=-2) / (2.0 * torch.clamp(q_abs[..., None], min=0.1))
+    best = torch.argmax(q_abs, dim=-1)
+    return torch.gather(cands, -2, best[..., None, None].expand(
+        best.shape + (1, 4))).squeeze(-2)
+
+
+def se3_to_quaternion_translation(se3: torch.Tensor) -> QuaternionTranslation:
+    """(..., 4, 4) SE(3) -> (quaternion (..., 4), translation (..., 3))."""
+    return matrix_to_quaternion(se3[..., :3, :3]), se3[..., :3, 3]
 
 
 def quaternion_translation_to_dual_quaternion(q, t) -> DualQuaternion:
