@@ -11,15 +11,17 @@ extra kernel channels, cycle/skin regularisers, feature reprojection; the
 2DGS normal and distortion terms in the last steps, with lambda_dist
 MAIN_LAMBDA_DIST). Then the reduced configuration
 (``--nogs_optim_warp --rgb_loss_only --flow_wt 0``) as a second path, at
-the same width and a smaller depth. Weights are random from a seed; the
-data is the synthetic database of `tests/helpers.make_fake_db`.
+the same width and a smaller depth, the round loop at the JAX default
+capacity, and the Stage-3 command line (train / render / export /
+reanimate) from a Stage-2 output. Weights are random from a seed; the data
+is the synthetic database of `tests/helpers.make_fake_db`.
 
 Phases (any failed check raises, so the exit code is non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the kernels from vidu4d_tpu_torch/csrc with nvcc, one process
      per source in parallel (timed);
   3. hold each kernel against its plain PyTorch version on seeded scenes:
-     64^2 and 256^2, 2 folded frames, 0 and 2 extra channels, a deep chain
+     64^2, 256^2 and 512^2, 2 folded frames, 0 and 2 extra channels, a deep chain
      of 24k splats over one tile (timed), entry_cap below the entry count,
      and the cases of the kernels' work-item split (items of SEG entries,
      `chain_batch`): stops on the first and the last entry of an item, a
@@ -67,7 +69,28 @@ Phases (any failed check raises, so the exit code is non-zero):
      the counts are read, both kernels are held against their plain
      versions on the inputs of ROUND_CHECKS, kept from the run. Prints the
      hooks', the eval renders', the checkpoints' and the rounds' times,
-     the file sizes and the median step.
+     the file sizes and the median step;
+ 11. the command line (`cli_path`), in process, in a run directory that
+     holds a Stage-2 output (`write_stage2_output`: the database, a
+     24,320-face ellipsoid shell mesh with vertex colours and features, a
+     Stage-2-layout checkpoint): `vidu4d_tpu_torch.train.main` with
+     --gs_init_mesh and --load_path (200k surfels on the mesh in 400k
+     slots, 1 round of 10 steps at 256^2, a checkpoint), then
+     `render.main` at 512^2 (rot_0_360 and ref), `export.main` (mesh
+     stride 4) and `reanimate.main` on the exported motion.json, each from
+     the run's opts.log. Requires: 200k alive after every mesh init; the
+     transferred deformer tensors bitwise those written; every step
+     finite and >= 50% of the surfels valid per frame in the first; the
+     run's opts.log, checkpoints and .ply; every render finite, (15, 512,
+     512, 3) renders, each ref frame covered >= CLI_MIN_COVER; a .ply of
+     ~200k rows, 16 frames of motion, 4 OBJ files; reanimated frame 0
+     within CLI_REANIMATE_TOL of the ref render's; launches K1 = steps +
+     1 eval render and K2 = steps in train, K1 = 1 per render / reanimate,
+     none in export, no plain call. Prints the mesh-init, transfer, step,
+     render and entry-point times and the entries and truncated entries
+     per frame against entry_cap. Then both kernels against their plain
+     versions on frames CLI_CHECK_FRAMES of the ref render's own inputs
+     (K2 with random cotangents; timed, with their pairs and bounds).
 The last two lines are a JSON object of per-kernel results and
 {"ok": true, "device": {...}}.
 
@@ -115,6 +138,31 @@ MAIN_LAMBDA_DIST = 100.0  # distortion weight of the steps with the 2DGS terms
 MAIN_STEPS = (2, 8, 2)  # warm-up, timed, then with the 2DGS terms
 REDUCED_STEPS = (2, 4)  # warm-up, timed
 ROUND_CAPACITY = 400_000  # the JAX trainer's default gs_capacity
+# the command-line path: a Stage-2 output (a mesh of 2 * 128 * 95 = 24,320
+# faces on the round path's ellipsoid shell, semi-axes 0.10, 0.12, 0.07, at
+# depth 0.38 from the Stage-2 camera), the JAX defaults of the Stage-3
+# recipe (the trainer's 200k surfels on the mesh in 400k slots), 1 round of
+# 10 steps, renders at the README's 512^2
+CLI_SURFELS, CLI_STEPS, CLI_RENDER_RES, CLI_FRAMES = 200_000, 10, 512, 16
+CLI_MESH = (96, 128)  # rings + 1, meridians
+MESH_AXES, MESH_DEPTH = (0.10, 0.12, 0.07), 0.38
+# the Stage-2 field's scale exp(logscale): the rot_* viewpoint places its
+# camera object-size x rot_dist x exp(logscale) from the centre (as the JAX
+# render does), outside the shell only for a scale near 1 (the deformer's
+# initial 0.1 puts it inside)
+MESH_SCALE = 0.8
+CLI_MIN_COVER = 0.05  # share of each ref frame's pixels with mask > 0.01
+# the warp AdamW's peak rate: a 1-round run squeezes the OneCycle warm-up
+# (lr / 25 to lr over 2 rounds) into its 10 steps, and at the default 5e-4
+# the camera MLP and the focal length walk the cloud out of view on the
+# synthetic data (the ref renders covered 0.6-1.2% of their pixels on the
+# H100). The JAX trainer does the same from the same Stage-2 output
+# (tests/test_torch_warp_lr.py, at 32^2). The README recipe (61 rounds of
+# 200 steps) is at 2e-5 .. 3.1e-5 over its first 10 steps
+CLI_WARP_LR = 3e-5
+# reanimated frame 0 vs the ref render's: the same camera, articulation and
+# intrinsics but for the t / exp(s) * exp(s) round trip of the translation
+CLI_REANIMATE_TOL = 1e-4
 # the round path: 2 rounds of 20 steps through train(), then a round of 11
 # steps in chunks of 3 (ending at steps 43, 46, 49 and 51). The cadence is
 # scaled down so every hook fires at full width: densify at 10, 20, 30, 40
@@ -161,6 +209,9 @@ STEP_GRAD_REL_TOL = 5e-3
 STEP_GRAD_FLOOR = 1e-5
 STEP_LOSS_REL_TOL, STEP_LOSS_ABS_TOL = 1e-3, 1e-8
 DEEP = "deep chain 24k splats / one tile"
+# frames of the 512^2 ref render whose kernel inputs are held against the
+# plain versions and timed (the plain versions of all 15 take tens of seconds)
+CLI_CHECK_FRAMES = (0, 1)
 # FP32 operations per (entry, pixel) pair, counted from the kernels' source
 # (a division or an expf counts as one): the splat response and cull of
 # every pair that needs it; the compositing of an included pair is 29 + 2 X
@@ -325,7 +376,9 @@ def check_backward(g_p, g_k, name):
 
 def compare_kernels(batch, rng, name, reps_k=20, reps_p=2, timed=False):
     """Run both kernels and both plain versions on one prepared batch;
-    check the tolerances; return errors and (optionally) timings."""
+    check the tolerances; return errors, the (entry, pixel) pairs these
+    inputs need and each kernel's bound (`needed_pairs`, `kernel_bounds`),
+    and (optionally) timings."""
     import torch
 
     from vidu4d_tpu_torch.ops.rasterize import tile_backward as tb
@@ -354,6 +407,8 @@ def compare_kernels(batch, rng, name, reps_k=20, reps_p=2, timed=False):
            "bwd_bound_share": bwd_bound_share,
            "entries": int(batch["tile_count"].sum()),
            "max_tile": int(batch["tile_count"].max())}
+    res["pairs"] = needed_pairs(batch, plain[1])
+    res["bounds"] = kernel_bounds(batch, res["pairs"])
     if timed:
         # plain, kernel, kernel, plain: compare within one run, in turns
         fk = lambda: tf.forward_tiles(*fw_args, *geo)
@@ -375,7 +430,8 @@ def compare_kernels(batch, rng, name, reps_k=20, reps_p=2, timed=False):
 
 def kernel_cases(rng):
     """Each kernel vs its plain version on seeded scenes, the work-item
-    split's cases included; the deep chain is timed. Returns its result."""
+    split's cases included; the deep chain is timed. Returns the scenes'
+    results by name."""
     import torch
 
     from vidu4d_tpu_torch.ops.rasterize import tile_forward as tf
@@ -387,6 +443,7 @@ def kernel_cases(rng):
         (DEEP, dict(n=24000, res=64, frames=1, n_extra=0, deep=True), 0),
         ("256x256 entry_cap < entries", dict(n=40000, res=256, frames=2,
                                              n_extra=0), 40000),
+        ("512x512 1 frame X=0", dict(n=60000, res=512, frames=1, n_extra=0), 0),
     ]
     results = {}
     for name, kw, cap in cases:
@@ -408,7 +465,7 @@ def kernel_cases(rng):
     for n_extra in (0, 2):
         batch = chain_batch(rng, tf.SEG, n_extra, "cuda")
         compare_kernels(batch, rng, f"item boundaries X={n_extra} (SEG {tf.SEG})")
-    return results[DEEP]
+    return results
 
 
 def tile_histogram(counts):
@@ -560,17 +617,22 @@ def scene_diag(prepared):
             "max_tile": counts.amax(dim=1).tolist()}
 
 
-def load_make_fake_db():
-    """tests/helpers.make_fake_db, loaded by path: an installed package
-    named ``tests`` would shadow the repo's (a directory without
-    __init__.py)."""
+def load_test_module(name):
+    """tests/<name>.py, loaded by path: an installed package named
+    ``tests`` would shadow the repo's (a directory without __init__.py).
+    torch's CPU thread count is kept (tests/torch_parity.py lowers it for
+    pytest's workers)."""
     import importlib.util
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "helpers.py")
-    spec = importlib.util.spec_from_file_location("vidu4d_test_helpers", path)
+    import torch
+
+    threads = torch.get_num_threads()
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"vidu4d_test_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.make_fake_db
+    torch.set_num_threads(threads)
+    return mod
 
 
 def build_trainer(tmp, device, surfels, res, frames=2, reduced=False, capacity=None,
@@ -591,7 +653,7 @@ def build_trainer(tmp, device, surfels, res, frames=2, reduced=False, capacity=N
     from vidu4d_tpu_torch.models.fields.time_mlp import init_intrinsics_base_params
     from vidu4d_tpu_torch.models.gaussian.surfels import init_from_points
 
-    db = load_make_fake_db()(tmp, num_vids=1, T=16, H=res, W=res)
+    db = load_test_module("helpers").make_fake_db(tmp, num_vids=1, T=16, H=res, W=res)
     opts = {
         "dataroot": db, "seqname": "toy", "logname": "smoke",
         "logroot": os.path.join(tmp, "logdir"), "data_prefix": "crop",
@@ -1055,9 +1117,233 @@ def round_path(tmp, rng, surfels, capacity, res):
     return rep, counts
 
 
+def write_stage2_output(run, rng, res):
+    """A Stage-2 output in ``run``: the database (`make_fake_db`, T =
+    CLI_FRAMES at res x res), and in ``run/logdir/toy-s2`` the mesh (semi-axes
+    MESH_AXES, CLI_MESH rings and meridians), its vertex colours and
+    features and a Stage-2-layout checkpoint whose camera sits MESH_DEPTH
+    from the mesh (`tests/torch_parity.write_stage2_output`). Returns (mesh
+    path, checkpoint path, the source deformer's state dict)."""
+    db = load_test_module("helpers").make_fake_db(run, num_vids=1, T=CLI_FRAMES, H=res, W=res)
+    return load_test_module("torch_parity").write_stage2_output(
+        os.path.join(run, "logdir", "toy-s2"), db, res, rng, CLI_MESH, MESH_AXES, MESH_DEPTH,
+        MESH_SCALE)
+
+
+def frames_of(batch, frames):
+    """A kept render batch cut to ``frames``: their tile tables, the whole
+    slab."""
+    import torch
+
+    tpf = batch["tiles_per_frame"]
+    sel = torch.cat([torch.arange(f * tpf, (f + 1) * tpf, device=batch["slab"].device)
+                     for f in frames])
+    return dict(batch, tile_start=batch["tile_start"][sel].contiguous(),
+                tile_count=batch["tile_count"][sel].contiguous())
+
+
+def cli_path(tmp, rng, device="cuda", capacity=ROUND_CAPACITY, train_res=MAIN_RES,
+             render_res=CLI_RENDER_RES, steps=CLI_STEPS):
+    """The Stage-3 command line on ``device``, in process, from a Stage-2
+    output (`write_stage2_output`), with the working directory in the run
+    directory (the CLIs read ``database/`` from it): `train.main` (surfels
+    on the mesh, the Stage-2 transfer, 1 round of ``steps`` steps, a
+    checkpoint), `render.main` at ``render_res`` for rot_0_360 and ref,
+    `export.main` (mesh stride 4) and `reanimate.main` on the exported
+    motion. Counts the kernel launches of each entry point from 0, times
+    the mesh inits, the transfer, the steps and each entry point, and
+    checks what the module docstring lists. Returns (report, launch counts
+    of the whole path, the ref render's kernel inputs, kept)."""
+    import torch
+
+    from vidu4d_tpu_torch import export as export_cli
+    from vidu4d_tpu_torch import kernels
+    from vidu4d_tpu_torch import reanimate as reanimate_cli
+    from vidu4d_tpu_torch import render as render_cli
+    from vidu4d_tpu_torch import train as train_cli
+    from vidu4d_tpu_torch.engine import gs4d_trainer
+    from vidu4d_tpu_torch.models.gaussian import deformable
+    from vidu4d_tpu_torch.models.gaussian.ply_io import load_ply
+    from vidu4d_tpu_torch.ops.rasterize import common
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    surfels = min(CLI_SURFELS, capacity)  # the mesh draw, cut to the capacity
+    run = os.path.join(tmp, "cli")
+    os.makedirs(run)
+    mesh, s2_ckpt, s2_sd = write_stage2_output(run, rng, train_res)
+    Trainer = gs4d_trainer.Stage3Trainer
+    rec = {"mesh_init_ms": [], "alive_after_init": [], "load_stage2_ms": [], "transfer": [],
+           "step_ms": [], "render_batch_ms": [], "first_step_valid": None, "bins": [],
+           "keep": False, "kept": None}
+
+    def clock(fn, *a, **kw):
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def mesh_init(*a, **kw):
+        state, ms = clock(originals[gs4d_trainer, "init_surfels_from_mesh"], *a, **kw)
+        rec["mesh_init_ms"].append(ms)
+        rec["alive_after_init"].append(int(state.alive.sum()))
+        return state
+
+    def load_stage2(self, path):
+        keys, ms = clock(originals[Trainer, "load_stage2"], self, path)
+        rec["load_stage2_ms"].append(ms)
+        # bitwise the source deformer's tensors, before any step moves them
+        sd = self.deformer.state_dict()
+        rec["transfer"].append((len(keys), [k for k in keys
+                                            if not torch.equal(sd[k].cpu(), s2_sd[k])]))
+        return keys
+
+    def train_step(self, *a, **kw):
+        m, ms = clock(originals[Trainer, "train_step"], self, *a, **kw)
+        rec["step_ms"].append(ms)
+        bad = [k for k, v in m.items() if not np.isfinite(float(v))]
+        if bad:
+            raise AssertionError(f"[cli] step {self.current_steps}: non-finite {bad}: {m}")
+        return m
+
+    def render_batch(self, *a, **kw):
+        out, ms = clock(originals[Trainer, "render_batch"], self, *a, **kw)
+        rec["render_batch_ms"].append(ms)
+        return out
+
+    def step_composite(prepared, *a, **kw):
+        if rec["first_step_valid"] is None:
+            rec["first_step_valid"] = prepared["valid"].tolist()
+        return originals[gs4d_trainer, "composite_batch"](prepared, *a, **kw)
+
+    def render_composite(prepared, *a, **kw):
+        if rec["keep"]:
+            rec["kept"] = {k: prepared[k].detach().clone() if torch.is_tensor(prepared[k])
+                           else prepared[k] for k in KERNEL_INPUTS}
+        return originals[deformable, "composite_batch"](prepared, *a, **kw)
+
+    def bins(*a, **kw):
+        b = originals[common, "bin_splats_aligned"](*a, **kw)
+        rec["bins"].append((int(b.num_entries), int(b.tile_count.sum())))
+        return b
+
+    wraps = {(gs4d_trainer, "init_surfels_from_mesh"): mesh_init,
+             (Trainer, "load_stage2"): load_stage2, (Trainer, "train_step"): train_step,
+             (Trainer, "render_batch"): render_batch,
+             (gs4d_trainer, "composite_batch"): step_composite,
+             (deformable, "composite_batch"): render_composite,
+             (common, "bin_splats_aligned"): bins}
+    originals = {key: getattr(*key) for key in wraps}
+    rep, counts, outs = {}, {}, {}
+
+    def entry(label, fn, argv):
+        kernels.reset_counts()
+        rec["bins"].clear()
+        out, rep[f"{label}_ms"] = clock(fn, argv)
+        counts[label] = dict(kernels.COUNTS)
+        rep[f"{label}_entries"] = [b[0] for b in rec["bins"]]
+        rep[f"{label}_truncated"] = [b[0] - b[1] for b in rec["bins"]]
+        return out
+
+    dev = ["--device", device]
+    cwd = os.getcwd()
+    try:
+        for key, fn in wraps.items():
+            setattr(*key, fn)
+        os.chdir(run)
+        trainer = entry("train", train_cli.main, [
+            *dev, "--seqname", "toy", "--logname", "s3", "--fg_motion", "gs-bob",
+            "--gs_init_mesh", mesh, "--load_path", s2_ckpt, "--gs_capacity", str(capacity),
+            "--train_res", str(train_res), "--imgs_per_gpu", "1", "--pixels_per_image", "-1",
+            "--num_rounds", "1", "--iters_per_round", str(steps), "--save_freq", "1",
+            "--learning_rate", str(CLI_WARP_LR)])
+        run_dir = os.path.abspath(trainer.save_dir)
+        rep["round_ms"] = [s * 1e3 for s in trainer.round_seconds]
+        rep["entry_cap"] = trainer.raster_cfg.entry_cap
+        del trainer
+        opts_log = os.path.join(run_dir, "opts.log")
+        load = [*dev, "--flagfile", opts_log, "--load_suffix", "latest"]
+        render_args = load + ["--render_res", str(render_res)]
+        outs["rot"] = entry("render_rot", render_cli.main,
+                            render_args + ["--viewpoint", "rot_0_360"])
+        rec["keep"] = True
+        outs["ref"] = entry("render_ref", render_cli.main, render_args + ["--viewpoint", "ref"])
+        rec["keep"] = False
+        exp_dir = os.path.abspath(entry("export", export_cli.main,
+                                        load + ["--export_mesh_stride", "4"]))
+        motion_path = os.path.join(exp_dir, "motion.json")
+        outs["reanimate"] = entry("reanimate", reanimate_cli.main,
+                                  render_args + ["--motion_path", motion_path])
+    finally:
+        os.chdir(cwd)
+        for key, fn in originals.items():
+            setattr(*key, fn)
+    with open(motion_path) as f:
+        motion = json.load(f)
+    _, n_ply = load_ply(os.path.join(exp_dir, "canonical-surfels.ply"))
+    rep.update({
+        "surfels": surfels, "capacity": capacity, "train_res": train_res,
+        "render_res": render_res, "mesh_faces": 2 * CLI_MESH[1] * (CLI_MESH[0] - 1),
+        "mesh_init_ms": rec["mesh_init_ms"], "alive_after_init": rec["alive_after_init"],
+        "load_stage2_ms": rec["load_stage2_ms"],
+        "transferred_tensors": rec["transfer"][0][0] if rec["transfer"] else 0,
+        "first_step_valid": rec["first_step_valid"], "step_ms": rec["step_ms"],
+        "render_batch_ms": rec["render_batch_ms"],
+        "step_ms_median": float(np.median(rec["step_ms"])),
+        "run_files": sorted(os.listdir(run_dir)),
+        "ref_cover": [float(x) for x in (outs["ref"]["mask"] > 0.01).mean(axis=(1, 2, 3))],
+        "reanimate_frame0_max_abs_diff": float(np.abs(
+            outs["reanimate"]["rendered"][0] - outs["ref"]["rendered"][0]).max()),
+        "motion_frames": len(motion["field2cam"]["quat"]), "ply_rows": n_ply,
+        "obj_files": sorted(f for f in os.listdir(exp_dir) if f.endswith(".obj")),
+        "counts": counts,
+    })
+    log(f"[cli] {json.dumps(rep)}")
+
+    problems = []
+    # one mesh init per trainer build: train, two renders, export, reanimate
+    if rec["alive_after_init"] != [surfels] * 5:
+        problems.append(f"alive after each mesh init {rec['alive_after_init']}")
+    if len(rec["transfer"]) != 1 or rec["transfer"][0][1] or not rep["transferred_tensors"]:
+        problems.append(f"Stage-2 transfer (tensors, differing) {rec['transfer']}")
+    if min(rec["first_step_valid"]) < 0.5 * surfels:
+        problems.append(f"< 50% valid in the first step {rec['first_step_valid']}")
+    if not {"opts.log", "ckpt_latest.pth", "ckpt_0001.pth",
+            "point_cloud_0001.ply"} <= set(rep["run_files"]):
+        problems.append(f"run files {rep['run_files']}")
+    for label, out in outs.items():
+        if not all(np.isfinite(v).all() for v in out.values()):
+            problems.append(f"non-finite {label} render")
+    # ref and rot render every frame but the last; reanimate every frame
+    want_shape = {"rot": CLI_FRAMES - 1, "ref": CLI_FRAMES - 1, "reanimate": CLI_FRAMES}
+    for label, m in want_shape.items():
+        if outs[label]["rendered"].shape != (m, render_res, render_res, 3):
+            problems.append(f"{label} rendered {outs[label]['rendered'].shape}")
+    if min(rep["ref_cover"]) < CLI_MIN_COVER:
+        problems.append(f"ref cover {rep['ref_cover']}")
+    if rep["motion_frames"] != CLI_FRAMES or not 0.99 * surfels <= n_ply <= capacity:
+        problems.append(f"motion frames {rep['motion_frames']}, ply rows {n_ply}")
+    if len(rep["obj_files"]) != -(-CLI_FRAMES // 4):
+        problems.append(f"mesh sequence {rep['obj_files']}")
+    if not rep["reanimate_frame0_max_abs_diff"] <= CLI_REANIMATE_TOL:
+        problems.append(f"reanimated frame 0 vs ref {rep['reanimate_frame0_max_abs_diff']}")
+    expect = {"train": (steps + 1, steps), "render_rot": (1, 0), "render_ref": (1, 0),
+              "export": (0, 0), "reanimate": (1, 0)}
+    for label, (k1, k2) in expect.items():
+        c = counts[label]
+        if (c["tile_forward"], c["tile_backward"]) != (k1, k2) or \
+                c["tile_forward_plain"] or c["tile_backward_plain"]:
+            problems.append(f"{label} launches {c}, expected K1 {k1} K2 {k2}, no plain")
+    if problems:
+        raise AssertionError(f"[cli] {problems}")
+    total = {k: sum(c[k] for c in counts.values()) for k in kernels.COUNTS}
+    return rep, total, rec["kept"]
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script runs "
                          "only on a machine with an NVIDIA GPU")
@@ -1083,7 +1369,7 @@ def main() -> int:
     tf.tile_library()
 
     rng = np.random.default_rng(1234)
-    deep_cmp = kernel_cases(rng)
+    deep_cmp = kernel_cases(rng)[DEEP]
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -1111,17 +1397,16 @@ def main() -> int:
         # depths, the work list, the pairs these inputs need, the bounds
         main_cmp = compare_kernels(main_batch, rng, "main path 200k 256x256 2 frames X=2",
                                    timed=True)
+        bounds = main_cmp["bounds"]
         log(f"[tiles main] {json.dumps(tile_histogram(main_batch['tile_count']))}")
+        log(f"[pairs main] {json.dumps(main_cmp['pairs'])}")
         _, aux_plain = tf.forward_tiles_plain(
             main_batch["slab"], main_batch["tile_start"], main_batch["tile_count"],
             main_batch["bg"], main_batch["tiles_x"], main_batch["tiles_per_frame"],
             main_batch["n_extra"])
-        pairs = needed_pairs(main_batch, aux_plain)
-        log(f"[pairs main] {json.dumps(pairs)}")
         work_list_report(main_batch["tile_count"], main_batch["slab"].shape[0], "main fwd")
         work_list_report(tb.effective_counts(main_batch["tile_count"], aux_plain[..., 8:12]),
                          main_batch["slab"].shape[0], "main bwd")
-        bounds = kernel_bounds(main_batch, pairs)
         log(f"[bounds main] {json.dumps(bounds)}")
         del main_batch, aux_plain
 
@@ -1160,6 +1445,16 @@ def main() -> int:
         hooks_cpu_vs_gpu(rng)
         round_rep, round_counts = round_path(tmp, rng, MAIN_SURFELS, ROUND_CAPACITY,
                                              MAIN_RES)
+        torch.cuda.empty_cache()
+
+        # the command line: train / render / export / reanimate from a
+        # Stage-2 output; then both kernels on the 512^2 ref render's own
+        # inputs (K2 with random cotangents)
+        cli_rep, cli_counts, ref_inputs = cli_path(tmp, rng)
+        render512 = compare_kernels(frames_of(ref_inputs, CLI_CHECK_FRAMES), rng,
+                                    f"cli ref render {CLI_RENDER_RES}^2", reps_p=1,
+                                    timed=True)
+        del ref_inputs
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1175,7 +1470,13 @@ def main() -> int:
          "round_launches": round_counts[name],
          "round_max_abs_err": max(c[f"{key}_max_abs_err"]
                                   for c in round_rep["kernel_checks"].values()),
-         "eval_render_launches": round_rep["eval_render_k1"] if key == "fwd" else 0}
+         "eval_render_launches": round_rep["eval_render_k1"] if key == "fwd" else 0,
+         "cli_launches": cli_counts[name],
+         # on frames CLI_CHECK_FRAMES of the CLI's 512^2 ref render
+         "render512_max_abs_err": render512[f"{key}_max_abs_err"],
+         "render512_ms": render512[f"{key}_ms"],
+         "render512_plain_ms": render512[f"{key}_plain_ms"],
+         "render512_bound_ms": render512["bounds"][name]["bound_ms"]}
         for name, key, replaces in (
             ("tile_forward", "fwd", "vidu4d_tpu/ops/rasterize/pallas_kernel.py:111"),
             ("tile_backward", "bwd", "vidu4d_tpu/ops/rasterize/pallas_backward.py:95"))
@@ -1186,7 +1487,16 @@ def main() -> int:
         f"tile_backward {main_cmp['bwd_ms']:.3f} ms (plain {main_cmp['bwd_plain_ms']:.3f}); "
         f"round path at capacity {ROUND_CAPACITY}: median step "
         f"{round_rep['step_ms_median']:.3f} ms, rounds {round_rep['round_wall_ms']} ms "
-        f"+ {round_rep['k3_round_ms']} ms")
+        f"+ {round_rep['k3_round_ms']} ms; command line: train {cli_rep['train_ms']:.1f} ms "
+        f"(median step {cli_rep['step_ms_median']:.3f} ms), render {CLI_RENDER_RES}^2 "
+        f"{cli_rep['render_rot_ms']:.1f} / {cli_rep['render_ref_ms']:.1f} ms, export "
+        f"{cli_rep['export_ms']:.1f} ms, reanimate {cli_rep['reanimate_ms']:.1f} ms; "
+        f"at {CLI_RENDER_RES}^2 K1 {render512['fwd_ms']:.3f} ms "
+        f"(plain {render512['fwd_plain_ms']:.3f}, "
+        f"bound {render512['bounds']['tile_forward']['bound_ms']:.4f}), "
+        f"K2 {render512['bwd_ms']:.3f} ms (plain {render512['bwd_plain_ms']:.3f}, "
+        f"bound {render512['bounds']['tile_backward']['bound_ms']:.4f})")
+    log(f"[wall] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -132,13 +132,17 @@ def test_mean_knn_sq_dist():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, imports without jax and
-    without any module of the JAX package (in a fresh process)."""
+    """Every module of the port (the CLI entry points and their config
+    among them), and chip_smoke.py, imports without jax and without any
+    module of the JAX package (in a fresh process)."""
     code = (
         "import pkgutil, sys, importlib, vidu4d_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(vidu4d_tpu_torch.__path__, "
         "'vidu4d_tpu_torch.')]\n"
         "[importlib.import_module(m) for m in mods]\n"
+        "entry = {'vidu4d_tpu_torch.' + m for m in ('config', 'train', 'render', 'export',\n"
+        "                                          'reanimate')}\n"
+        "assert entry <= set(mods), sorted(entry - set(mods))\n"
         "import chip_smoke\n"
         "assert len(mods) >= 20, mods\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

@@ -130,9 +130,9 @@ def test_pair_sampler_matches_pair_batcher(tmp_path):
 
 
 @pytest.mark.parametrize("bad", [
-    {"gs_init_mesh": "mesh-geo.obj"}, {"single_inst": False},
+    {"gs_init_ply": "point_cloud.ply"}, {"single_inst": False},
     {"fg_motion": "gs-dense"}, {"pixels_per_image": 16}, {"ngpu": 2},
-    {"raster_impl": "tiles"}, {"load_path": "logdir/toy-s2/ckpt_latest.pth"},
+    {"raster_impl": "tiles"}, {"raster_tile": 8},
 ])
 def test_unported_options_raise(tmp_path, bad):
     db = make_fake_db(tmp_path, num_vids=1, T=8, H=16, W=16)

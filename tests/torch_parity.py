@@ -90,3 +90,76 @@ def make_scene(rng, n=200, spread=0.8, res=64, frames=1):
     intrins = np.tile([res * 60.0 / 64, res * 60.0 / 64, res / 2.0, res / 2.0], (frames, 1))
     f32 = lambda a: np.asarray(a, np.float32)
     return tuple(map(f32, (means, quats, scales, opac, colors, intrins)))
+
+
+def ellipsoid_mesh(axes, n_lat, n_lon):
+    """A closed triangulated ellipsoid shell centred at the origin: two
+    poles and n_lat - 1 rings of n_lon vertices; 2 n_lon (n_lat - 1) faces,
+    wound outwards."""
+    theta = np.pi * np.arange(1, n_lat) / n_lat
+    phi = 2 * np.pi * np.arange(n_lon) / n_lon
+    ring = np.stack([np.sin(theta)[:, None] * np.cos(phi)[None],
+                     np.sin(theta)[:, None] * np.sin(phi)[None],
+                     np.cos(theta)[:, None] * np.ones(n_lon)[None]], -1).reshape(-1, 3)
+    verts = np.concatenate([[[0, 0, 1]], ring, [[0, 0, -1]]]) * np.asarray(axes)
+    last = len(verts) - 1
+    j, j1 = np.arange(n_lon), (np.arange(n_lon) + 1) % n_lon
+    faces = [np.stack([np.zeros(n_lon, int), 1 + j, 1 + j1], -1)]
+    for i in range(n_lat - 2):
+        a, b = 1 + i * n_lon, 1 + (i + 1) * n_lon
+        faces += [np.stack([a + j, b + j, b + j1], -1), np.stack([a + j, b + j1, a + j1], -1)]
+    a = 1 + (n_lat - 2) * n_lon
+    faces.append(np.stack([np.full(n_lon, last), a + j1, a + j], -1))
+    return verts.astype(np.float32), np.concatenate(faces).astype(np.int32)
+
+
+def write_stage2_output(s2_dir, db, res, rng, mesh=(96, 128), axes=(0.10, 0.12, 0.07),
+                        depth=0.38, scale=0.8):
+    """A Stage-2 output for the database ``db`` (res x res) in ``s2_dir``:
+    the mesh ``000-fg-geo.obj`` (`ellipsoid_mesh` of semi-axes ``axes``,
+    ``mesh`` = (rings + 1, meridians)), its vertex colours
+    ``000-fg-geo-colors.npy`` and 16-dim vertex features
+    ``000-fg-feat.npy`` (drawn from ``rng``), and a Stage-2-layout
+    ``ckpt_latest.pth``: ``{"params": {"params": {"fields_fg": {warp,
+    camera_mlp, logscale}, "intrinsics": ...}}}`` from a seeded port
+    deformer whose camera MLP gives the identity rotation at ``depth`` in
+    every frame, whose intrinsics are the pixel-true prior and whose
+    logscale is log(``scale``). Returns (mesh path, checkpoint path, the
+    source deformer's state dict)."""
+    import os
+    import pickle
+
+    from vidu4d_tpu_torch import convert
+    from vidu4d_tpu_torch.data import data_utils
+    from vidu4d_tpu_torch.models.fields.time_mlp import init_intrinsics_base_params
+    from vidu4d_tpu_torch.models.gaussian.deformable import GaussianDeformer
+    from vidu4d_tpu_torch.ops.marching import save_obj
+
+    verts, faces = ellipsoid_mesh(axes, *mesh)
+    mesh_path = os.path.join(s2_dir, "000-fg-geo.obj")
+    save_obj(mesh_path, verts, faces)
+    np.save(os.path.join(s2_dir, "000-fg-geo-colors.npy"),
+            np.clip(verts / (2 * np.asarray(axes)) + 0.5, 0, 1).astype(np.float32))
+    np.save(os.path.join(s2_dir, "000-fg-feat.npy"),
+            rng.normal(size=(len(verts), 16)).astype(np.float32))
+
+    opts = {"dataroot": db, "seqname": "toy", "data_prefix": "crop", "train_res": res}
+    fi = data_utils.get_data_info(data_utils.build_datasets(
+        opts, rng=np.random.default_rng(0)))["frame_info"]
+    d = GaussianDeformer(fi, "bob", device="cpu", generator=torch.Generator().manual_seed(5))
+    n_frames = int(np.asarray(fi.frame_offset)[-1])
+    init_intrinsics_base_params(d.intrinsics, np.tile(np.array(
+        [1.2 * res, 1.2 * res, res / 2, res / 2], np.float32), (n_frames, 1)), fi)
+    with torch.no_grad():
+        d.logscale.fill_(float(np.log(scale)))
+        for head, bias in ((d.camera_mlp.trans_head, (0.0, 0.0, depth)),
+                           (d.camera_mlp.quat_head, (1.0, 0.0, 0.0, 0.0))):
+            head.out.weight.zero_()
+            head.out.bias.copy_(torch.tensor(bias))
+    tree = convert.state_dict_to_flax(d.state_dict())["params"]
+    params = {"params": {"fields_fg": {k: tree[k] for k in ("warp", "camera_mlp", "logscale")},
+                         "intrinsics": tree["intrinsics"]}}
+    ckpt = os.path.join(s2_dir, "ckpt_latest.pth")
+    with open(ckpt, "wb") as f:
+        pickle.dump({"current_steps": 0, "current_round": 20, "params": params}, f)
+    return mesh_path, ckpt, {k: v.detach().clone() for k, v in d.state_dict().items()}

@@ -1,6 +1,9 @@
-"""Convert the JAX package's parameters and state into the port's.
+"""Convert the JAX package's parameters, state and checkpoints into the
+port's.
 
-Inputs are numpy trees, as ``jax.tree.map(np.asarray, x)`` gives them:
+`load_jax_checkpoint` reads a JAX ``ckpt_*.pth`` without importing JAX:
+its pickles hold classes of the JAX package, of optax and of flax. Other
+inputs are numpy trees, as ``jax.tree.map(np.asarray, x)`` gives them:
 the flax parameter dict of ``GaussianDeformer``, the ``SurfelState`` /
 ``GsAdamState`` fields (any object with those attributes, or a dict), and
 the optax state of the warp AdamW. Such
@@ -15,6 +18,7 @@ layer); the port names them ``out`` and ``hidden``.
 
 from __future__ import annotations
 
+import pickle
 from typing import Any, Dict
 
 import numpy as np
@@ -25,6 +29,66 @@ from vidu4d_tpu_torch.models.gaussian.optimizer import GsAdamState
 from vidu4d_tpu_torch.models.gaussian.surfels import SurfelParams, SurfelState
 
 _RENAME = {"Dense_0": "out", "Dense_1": "hidden"}
+_RENAME_BACK = {v: k for k, v in _RENAME.items()}
+
+# the JAX package's NamedTuples in its checkpoints (`surfels.py:30-50`,
+# `optimizer.py:75`) -> the port's, which have the same fields in the same
+# order (the NamedTuples unpickle as ``cls.__new__(cls, *fields)``)
+_STAND_INS = {
+    ("vidu4d_tpu.models.gaussian.surfels", "SurfelParams"): SurfelParams,
+    ("vidu4d_tpu.models.gaussian.surfels", "SurfelState"): SurfelState,
+    ("vidu4d_tpu.models.gaussian.optimizer", "GsAdamState"): GsAdamState,
+}
+# packages whose classes are replaced by inert stand-ins (they import jax)
+_FOREIGN = ("jax", "jaxlib", "flax", "optax", "vidu4d_tpu")
+
+
+class JaxObject:
+    """An object of a class of JAX, flax, optax or the JAX package, unpickled
+    without that class: its arguments (``args``, ``kwargs``) and pickled
+    state (``state``) are kept and nothing else is done with them."""
+
+    def __new__(cls, *args, **kwargs):
+        obj = object.__new__(cls)
+        obj.args, obj.kwargs, obj.state = args, kwargs, None
+        return obj
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        self.state = state
+
+    def __repr__(self):
+        return f"JaxObject({self.__module__}.{type(self).__name__}, {len(self.args)} args)"
+
+
+class _JaxFreeUnpickler(pickle.Unpickler):
+    def __init__(self, f):
+        super().__init__(f)
+        self._classes = {}
+
+    def find_class(self, module, name):
+        if (module, name) in _STAND_INS:
+            return _STAND_INS[module, name]
+        if module.split(".")[0] in _FOREIGN:
+            key = (module, name)
+            if key not in self._classes:
+                self._classes[key] = type(name, (JaxObject,), {"__module__": module})
+            return self._classes[key]
+        return super().find_class(module, name)
+
+
+def load_jax_checkpoint(path: str) -> Dict:
+    """Read a checkpoint of either package without importing JAX or the JAX
+    package: SurfelParams / SurfelState / GsAdamState become the port's
+    NamedTuples (of numpy arrays), any other class of jax, jaxlib, flax,
+    optax or vidu4d_tpu (the Stage-2 ``FieldState``, optax states) a
+    `JaxObject`. The port's own checkpoints hold dicts of numpy arrays and
+    read the same way. Only read files this program or the JAX package
+    wrote: unpickling runs the constructors the file names."""
+    with open(path, "rb") as f:
+        return _JaxFreeUnpickler(f).load()
 
 
 def _field(obj: Any, name: str):
@@ -48,6 +112,23 @@ def flax_to_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
 
     walk(params.get("params", params), [])
     return out
+
+
+def state_dict_to_flax(sd: Dict[str, torch.Tensor]) -> Dict:
+    """A torch state dict -> a flax ``{"params": {...}}`` tree of numpy
+    arrays: the inverse of `flax_to_state_dict` (weights transposed back to
+    kernels, ``out`` / ``hidden`` named ``Dense_0`` / ``Dense_1``)."""
+    root: Dict = {}
+    for key, value in sd.items():
+        path = [_RENAME_BACK.get(p, p) for p in key.split(".")]
+        arr = value.detach().cpu().numpy().copy()
+        if path[-1] == "weight":
+            path[-1], arr = "kernel", arr.T.copy()
+        node = root
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = arr
+    return {"params": root}
 
 
 def load_flax_params_(module: nn.Module, params: Dict) -> None:

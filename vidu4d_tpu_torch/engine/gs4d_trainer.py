@@ -18,6 +18,11 @@ opacity-reset / radius-outlier hooks at the JAX cadence (`_densify_hooks`),
 the opt-in gradient-spike rollback, and per-round checkpoints (pickled
 numpy payloads) with a 3DGS ``.ply`` of the alive surfels.
 
+The surfels start on the Stage-2 mesh (``gs_init_mesh``,
+`init_surfels_from_mesh`) or as a random cloud; `load_stage2` takes the
+warp, camera and intrinsics over from a JAX Stage-2 checkpoint, and
+`load_checkpoint` reads the port's checkpoints and the JAX trainer's.
+
 ``--nogs_optim_warp``, ``--rgb_loss_only`` and ``--flow_wt 0`` switch the
 corresponding parts off. Options the port does not have yet raise
 NotImplementedError; none is ignored.
@@ -56,6 +61,7 @@ from vidu4d_tpu_torch.models.gaussian.ply_io import save_ply
 from vidu4d_tpu_torch.ops import geometry as geom
 from vidu4d_tpu_torch.ops.depth_normal import surf_depth_and_normal
 from vidu4d_tpu_torch.ops.image_losses import ssim
+from vidu4d_tpu_torch.ops.marching import load_obj, sample_mesh_surface
 from vidu4d_tpu_torch.ops.numerics import safe_norm
 from vidu4d_tpu_torch.ops.quaternion import dual_quaternion_to_quaternion_translation
 from vidu4d_tpu_torch.ops.rasterize import RasterizeConfig
@@ -77,8 +83,7 @@ def check_supported(opts: Dict) -> None:
          f"raster_impl={o.get('raster_impl')!r} (the port has the kernel path only)"),
         (o.get("raster_tile", 16) != 16, "raster_tile != 16"),
         (o.get("pixels_per_image", -1) != -1, "pixels_per_image != -1"),
-        (bool(o.get("gs_init_mesh")), "gs_init_mesh (mesh surfel init)"),
-        (bool(o.get("load_path")), "load_path (Stage-2 checkpoint transfer)"),
+        (bool(o.get("gs_init_ply")), "gs_init_ply (the JAX trainer ignores it)"),
         (not o.get("single_inst", True), "single_inst=False"),
         (o.get("fg_motion", "gs-bob") != "gs-bob",
          f"fg_motion={o.get('fg_motion')!r} (the port has gs-bob only)"),
@@ -86,6 +91,71 @@ def check_supported(opts: Dict) -> None:
     missing = [what for bad, what in unsupported if bad]
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
+
+
+def init_surfels_from_mesh(mesh_path: str, feat_path: Optional[str], capacity: int,
+                           n_samples: int, sh_degree: int, generator: torch.Generator,
+                           device) -> sf.SurfelState:
+    """Surfels on the Stage-2 mesh (`gs4d_trainer.py:83-118`): ``n_samples``
+    area-weighted surface points drawn from ``np.random.default_rng(0)``,
+    as the JAX trainer draws them, colours blended from the mesh's
+    ``-colors.npy`` vertex colours (else 0.5 grey) and registration features
+    from ``feat_path``'s vertex features (when the file exists; L2-normalised)
+    by the same barycentric weights, then `surfels.init_from_points` with
+    rotations from ``generator``."""
+    verts, faces = load_obj(mesh_path)
+    pts, fid, bary = sample_mesh_surface(verts, faces, n_samples,
+                                         rng=np.random.default_rng(0))
+    colors_path = mesh_path.replace(".obj", "-colors.npy")
+    if os.path.exists(colors_path):
+        vcolors = np.load(colors_path)
+        colors = np.einsum("nk,nkc->nc", bary, vcolors[faces[fid]]).astype(np.float32)
+    else:
+        colors = np.full((n_samples, 3), 0.5, np.float32)
+    regist_feat = None
+    if feat_path and os.path.exists(feat_path):
+        vfeat = np.load(feat_path)
+        feat = np.einsum("nk,nkc->nc", bary, vfeat[faces[fid]])
+        feat /= np.maximum(np.linalg.norm(feat, axis=-1, keepdims=True), 1e-12)
+        regist_feat = torch.as_tensor(feat.astype(np.float32), device=device)
+    t = lambda a: torch.as_tensor(a, device=device)
+    return sf.init_from_points(t(pts), t(colors), capacity, sh_degree=sh_degree,
+                               generator=generator, regist_feat=regist_feat)
+
+
+# the Stage-2 subtrees a Stage-3 deformer takes over (`gs4d_trainer.py:121-134`):
+# (path in the Stage-2 flax params, the deformer's submodule)
+STAGE2_TRANSFER = ((("fields_fg", "warp"), "warp"), (("fields_fg", "camera_mlp"), "camera_mlp"),
+                   (("fields_fg", "logscale"), "logscale"), (("intrinsics",), "intrinsics"))
+
+
+def transfer_stage2_params(stage2_params: Dict, deformer: torch.nn.Module) -> list:
+    """Copy the warp, camera MLP, logscale and intrinsics of a Stage-2 flax
+    tree (``{"params": {"fields_fg": {...}, "intrinsics": {...}}}``, numpy)
+    into ``deformer`` in place (`gs4d_trainer.py:121`): its parameter
+    tensors stay the ones the optimiser holds. Every parameter under those
+    four names must be matched, with its shape. Returns the keys copied."""
+    src = stage2_params["params"]
+    tree = {}
+    for path, name in STAGE2_TRANSFER:
+        node = src
+        for p in path:
+            if p not in node:
+                raise KeyError(f"the Stage-2 parameters have no {'.'.join(path)}")
+            node = node[p]
+        tree[name] = node
+    sd = convert.flax_to_state_dict({"params": tree})
+    own = deformer.state_dict()
+    want = {k for k in own if k.split(".")[0] in tree}
+    if set(sd) != want:
+        raise ValueError(f"Stage-2 parameters do not match the deformer's: "
+                         f"{sorted(set(sd) ^ want)}")
+    bad = [k for k in sd if sd[k].shape != own[k].shape]
+    if bad:
+        raise ValueError(f"Stage-2 parameter shapes differ: "
+                         f"{[(k, tuple(sd[k].shape), tuple(own[k].shape)) for k in bad]}")
+    deformer.load_state_dict({k: v.to(own[k].device) for k, v in sd.items()}, strict=False)
+    return sorted(sd)
 
 
 def cadence_due(it: int, span: int, interval: int) -> Optional[int]:
@@ -168,17 +238,27 @@ class Stage3Trainer:
             learnable_bg=opts.get("gs_learnable_bg", True), device=self.device,
             generator=gen,
         )
-        # random init cloud, as the JAX trainer without a Stage-2 mesh
-        rng = np.random.default_rng(0)
-        n = opts.get("gs_init_samples", 100_000)
-        pts = rng.normal(size=(n, 3)).astype(np.float32) * 0.05
-        cols = rng.uniform(size=(n, 3)).astype(np.float32)
-        self.surfels = sf.init_from_points(
-            torch.as_tensor(pts, device=self.device),
-            torch.as_tensor(cols, device=self.device),
-            opts.get("gs_capacity", 400_000), sh_degree=opts.get("sh_degree", 3),
-            generator=gen,
-        )
+        # surfels on the Stage-2 mesh, else a random cloud (`gs4d_trainer.py:176`);
+        # a named mesh that does not exist raises (the JAX trainer falls back
+        # to the random cloud)
+        cap, sh_degree = opts.get("gs_capacity", 400_000), opts.get("sh_degree", 3)
+        mesh = opts.get("gs_init_mesh", "")
+        if mesh:
+            if not os.path.exists(mesh):
+                raise FileNotFoundError(f"gs_init_mesh {mesh!r} does not exist")
+            self.surfels = init_surfels_from_mesh(
+                mesh, mesh.replace("-geo.obj", "-feat.npy"), cap,
+                opts.get("gs_init_samples", 200_000), sh_degree, gen, self.device)
+        else:
+            rng = np.random.default_rng(0)
+            n = opts.get("gs_init_samples", 100_000)
+            pts = rng.normal(size=(n, 3)).astype(np.float32) * 0.05
+            cols = rng.uniform(size=(n, 3)).astype(np.float32)
+            self.surfels = sf.init_from_points(
+                torch.as_tensor(pts, device=self.device),
+                torch.as_tensor(cols, device=self.device), cap, sh_degree=sh_degree,
+                generator=gen,
+            )
         self.batcher = PairSampler(datasets, opts.get("imgs_per_gpu", 1), seed=seed)
         self.gs_lrs = GsLearningRates(
             xyz_init=opts.get("position_lr_init", 5e-5),
@@ -699,21 +779,32 @@ class Stage3Trainer:
                  sf.SurfelParams(**payload["surfels"]["params"]), payload["surfels"]["alive"])
 
     def load_checkpoint(self, path: str, reset_steps: bool = True) -> Dict:
-        """Load a `save_checkpoint` file (`gs4d_trainer.py:990`): the
-        deformer (in place, so the warp AdamW keeps its parameters; its
-        moments are not in the file and stay as they are), the surfel store
-        and its Adam; the step and round counters too unless
+        """Load a checkpoint of `save_checkpoint` or of the JAX trainer
+        (`gs4d_trainer.py:990`; read by `convert.load_jax_checkpoint`,
+        without JAX): the deformer (in place, so the warp AdamW keeps its
+        parameters; its moments are not in the file and stay as they are;
+        a JAX file holds a flax tree, the port's a state dict), the surfel
+        store and its Adam; the step and round counters too unless
         ``reset_steps``. Returns the payload."""
-        with open(path, "rb") as f:
-            payload = pickle.load(f)
-        self.deformer.load_state_dict({k: torch.as_tensor(v)
-                                       for k, v in payload["params"].items()})
+        payload = convert.load_jax_checkpoint(path)
+        params = payload["params"]
+        if isinstance(params.get("params"), dict):  # the JAX trainer's flax tree
+            convert.load_flax_params_(self.deformer, params)
+        else:
+            self.deformer.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()})
         self.surfels = convert.surfel_state_from_jax(payload["surfels"], self.device)
         self.gs_adam = convert.gs_adam_from_jax(payload["gs_adam"], self.device)
         if not reset_steps:
             self.current_steps = payload["current_steps"]
             self.current_round = payload["current_round"]
         return payload
+
+    def load_stage2(self, path: str) -> list:
+        """Take over the warp, camera MLP, logscale and intrinsics of a
+        Stage-2 checkpoint of the JAX package (`gs4d_trainer.py:1001`),
+        in place. Returns the keys copied."""
+        return transfer_stage2_params(convert.load_jax_checkpoint(path)["params"],
+                                      self.deformer)
 
 
 def hooks_note(events) -> str:

@@ -1,0 +1,94 @@
+"""Export the canonical surfels and the per-frame motion (`vidu4d_tpu/export.py`).
+
+    python -m vidu4d_tpu_torch.export --flagfile=logdir/<seq>-<log>/opts.log \\
+        --load_suffix latest --inst_id 0 [--export_mesh_stride 4] [--device cpu]
+
+Writes ``export_NNNN/`` in the run directory: ``canonical-surfels.ply``
+(the alive surfels, 3DGS layout), ``motion.json`` (per frame: field2cam
+quaternion and translation in world units, and the bones' dual quaternions
+``t_articulation`` qr / qd; `reanimate` reads it) and, with
+``--export_mesh_seq`` (default), ``fg-NNNNN.obj``: the alive surfel centres
+warped to every ``export_mesh_stride``-th frame. Stage 2 is not ported yet
+and raises.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from vidu4d_tpu_torch import config
+from vidu4d_tpu_torch.models.gaussian.ply_io import save_ply
+from vidu4d_tpu_torch.models.gaussian.surfels import SurfelParams
+from vidu4d_tpu_torch.ops.marching import save_obj
+from vidu4d_tpu_torch.ops.quaternion import quaternion_translation_apply
+from vidu4d_tpu_torch.render import build_trainer
+
+
+@torch.no_grad()
+def export_motion_params(trainer, frameid: np.ndarray, path: str) -> Dict:
+    """``motion.json`` at raw frame ids (`export.py:29`): field2cam as
+    (quat, trans / exp(logscale)), the articulation as (qr, qd)."""
+    d = trainer.deformer
+    fid = torch.as_tensor(np.asarray(frameid), device=trainer.device)
+    q, t = d.camera_mlp(fid)
+    qr, qd = d.warp.articulation(fid)
+    npy = lambda x: x.cpu().numpy().tolist()
+    motion = {"field2cam": {"quat": npy(q), "trans": npy(t / torch.exp(d.logscale))},
+              "t_articulation": {"qr": npy(qr), "qd": npy(qd)}}
+    with open(path, "w") as f:
+        json.dump(motion, f)
+    return motion
+
+
+@torch.no_grad()
+def export_mesh_sequence(trainer, frameid: np.ndarray, save_dir: str, stride: int = 1) -> None:
+    """The alive surfel centres warped to every ``stride``-th frame, in
+    field space, as ``fg-%05d.obj`` point sets (`export.py:80`)."""
+    d = trainer.deformer
+    xyz = trainer.surfels.params.xyz.detach()
+    alive = trainer.surfels.alive
+    inst = torch.zeros((1,), dtype=torch.int32, device=trainer.device)
+    for f in np.asarray(frameid)[::stride]:
+        fid = torch.as_tensor([int(f)], device=trainer.device)
+        t_art, rest_art = d.warp.articulation.vals_and_mean(fid)
+        (q, t), _ = d.warp(xyz[None, :, None], fid, inst,
+                           samples_dict={"t_articulation": t_art, "rest_articulation": rest_art})
+        warped = quaternion_translation_apply(q[0, :, 0], t[0, :, 0], xyz)[alive]
+        save_obj(os.path.join(save_dir, "fg-%05d.obj" % int(f)), warped.cpu().numpy(),
+                 np.zeros((0, 3), np.int32))
+
+
+def export(opts: Dict, device="cuda") -> str:
+    """Write ``export_<inst_id>/`` (`export.py:125`). Returns its path."""
+    trainer = build_trainer(opts, device)
+    offsets = np.asarray(trainer.frame_info.frame_offset_raw)
+    vid = opts["inst_id"]
+    frameid = np.arange(offsets[vid], offsets[vid + 1])
+    save_dir = os.path.join(trainer.save_dir, "export_%04d" % vid)
+    os.makedirs(save_dir, exist_ok=True)
+    s = trainer.surfels
+    save_ply(os.path.join(save_dir, "canonical-surfels.ply"),
+             SurfelParams(*[p.detach().cpu().numpy() for p in s.params]),
+             s.alive.cpu().numpy())
+    export_motion_params(trainer, frameid, os.path.join(save_dir, "motion.json"))
+    if opts.get("export_mesh_seq", True):
+        export_mesh_sequence(trainer, frameid, save_dir,
+                             stride=opts.get("export_mesh_stride", 1))
+    print(f"exported to {save_dir}")
+    return save_dir
+
+
+def main(argv: Optional[Sequence[str]] = None) -> str:
+    opts = config.parse_flags(sys.argv[1:] if argv is None else argv, config.EXPORT_FLAGS)
+    device = opts.pop("device")
+    return export(opts, device)
+
+
+if __name__ == "__main__":
+    main()

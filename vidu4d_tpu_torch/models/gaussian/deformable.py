@@ -55,10 +55,17 @@ class GaussianDeformer(nn.Module):
     def get_samples(self, batch: Dict[str, torch.Tensor]) -> Dict:
         """Camera + articulation cache (`deformable.py:63`). A batch
         "field2cam" (M, 7) (quaternion, translation) replaces the camera
-        MLP's, its translation scaled by exp(logscale)."""
+        MLP's, its translation scaled by exp(logscale); a batch
+        "t_articulation" (M, B, 2, 4) (real, dual parts) replaces the
+        articulation's at the frames (reanimation, `deformable.py:100-103`)."""
+        if "joint_so3" in batch:
+            raise NotImplementedError("the joint_so3 override needs a skeleton "
+                                      "articulation, which is not ported yet")
         frame_id = batch["frameid"]
         kmat = self.intrinsics(frame_id)
         t_art, rest_art = self.warp.articulation.vals_and_mean(frame_id)
+        if "t_articulation" in batch:
+            t_art = (batch["t_articulation"][..., 0, :], batch["t_articulation"][..., 1, :])
         if "field2cam" in batch:
             field2cam = (batch["field2cam"][..., :4],
                          batch["field2cam"][..., 4:] * torch.exp(self.logscale))

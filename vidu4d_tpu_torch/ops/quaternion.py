@@ -111,6 +111,15 @@ def matrix_to_quaternion(matrix: torch.Tensor) -> torch.Tensor:
         best.shape + (1, 4))).squeeze(-2)
 
 
+def quaternion_translation_to_se3(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(quaternion (..., 4), translation (..., 3)) -> (..., 4, 4) SE(3)
+    (`quaternion.py:169`)."""
+    top = torch.cat([quaternion_to_matrix(q), t[..., None]], dim=-1)
+    bottom = torch.zeros_like(top[..., :1, :])
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
+
+
 def se3_to_quaternion_translation(se3: torch.Tensor) -> QuaternionTranslation:
     """(..., 4, 4) SE(3) -> (quaternion (..., 4), translation (..., 3))."""
     return matrix_to_quaternion(se3[..., :3, :3]), se3[..., :3, 3]

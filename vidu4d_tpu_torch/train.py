@@ -1,0 +1,58 @@
+"""Training entry point (`vidu4d_tpu/train.py`), Stage 3.
+
+    python -m vidu4d_tpu_torch.train --seqname cheetah --logname s3 --fg_motion gs-bob \\
+        --num_rounds 61 --imgs_per_gpu 1 --pixels_per_image -1 \\
+        --load_path logdir/cheetah-s2/ckpt_latest.pth \\
+        --gs_init_mesh logdir/cheetah-s2/020-fg-geo.obj [--device cpu]
+
+Writes ``<logroot>/<seqname>-<logname>/opts.log`` (readable by the JAX
+CLIs), starts the surfels on ``--gs_init_mesh``, takes the warp, cameras
+and intrinsics over from the Stage-2 checkpoint ``--load_path`` (a JAX
+file, read without JAX), resumes from ``ckpt_<load_suffix>.pth`` when
+``--load_suffix`` is set, and trains. Runs on the card unless
+``--device cpu``. Stage 2 (a ``fg_motion`` without "gs") is not ported yet
+and raises.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+from typing import Optional, Sequence
+
+from vidu4d_tpu_torch import config
+from vidu4d_tpu_torch.render import require_stage3
+
+
+def log_fn(step: int, *rest) -> None:
+    """The JAX CLI's console line: ``step N: k=v ...``, the 8 largest terms."""
+    if isinstance(rest[-1], dict):
+        top = sorted(rest[-1].items(), key=lambda kv: -abs(float(kv[1])))[:8]
+        msg = " ".join(f"{k}={float(v):.4f}" for k, v in top)
+    else:
+        msg = str(rest)
+    print(f"step {step}: {msg}")
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """Parse, save opts.log, build the trainer, load, train. Returns the
+    trainer."""
+    from vidu4d_tpu_torch.engine.gs4d_trainer import Stage3Trainer
+
+    opts = config.parse_flags(sys.argv[1:] if argv is None else argv)
+    device = opts.pop("device")
+    require_stage3(opts)
+    config.save_config(opts)
+    trainer = Stage3Trainer(opts, device)
+    if opts["load_path"]:
+        trainer.load_stage2(opts["load_path"])
+    if opts["load_suffix"]:
+        trainer.load_checkpoint(
+            os.path.join(trainer.save_dir, f"ckpt_{opts['load_suffix']}.pth"),
+            reset_steps=opts["reset_steps"])
+    trainer.train(log_fn=log_fn)
+    return trainer
+
+
+if __name__ == "__main__":
+    main()
