@@ -13,8 +13,11 @@ MAIN_LAMBDA_DIST). Then the reduced configuration
 (``--nogs_optim_warp --rgb_loss_only --flow_wt 0``) as a second path, at
 the same width and a smaller depth, the round loop at the JAX default
 capacity, and the Stage-3 command line (train / render / export /
-reanimate) from a Stage-2 output. Weights are random from a seed; the data
-is the synthetic database of `tests/helpers.make_fake_db`.
+reanimate) from a Stage-2 output, and the static 2DGS command line
+(`gs_static`) on a synthetic COLMAP scene at 1237 x 822. Weights are
+random from a seed; the data is the synthetic database of
+`tests/helpers.make_fake_db` and the scene of
+`tests/torch_parity.static_scene`.
 
 Phases (any failed check raises, so the exit code is non-zero):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
@@ -90,7 +93,30 @@ Phases (any failed check raises, so the exit code is non-zero):
      render and entry-point times and the entries and truncated entries
      per frame against entry_cap. Then both kernels against their plain
      versions on frames CLI_CHECK_FRAMES of the ref render's own inputs
-     (K2 with random cotangents; timed, with their pairs and bounds).
+     (K2 with random cotangents; timed, with their pairs and bounds);
+ 12. one static 2DGS step (`gs_trainer.train_step`, STATIC_SMALL: 72 x
+     104, 4.5 x 6.5 tiles with cut edges, 4k surfels, SH 3 with random
+     higher bands, white background) on the card and on the CPU from one
+     state: loss, PSNR, every surfel gradient and the densification
+     statistics; then both kernels against their plain versions on the
+     card step's inputs (a non-square frame with cut edge tiles);
+ 13. the static 2DGS command line (`static_path`): a synthetic COLMAP
+     reconstruction at 1237 x 822 (24 ring cameras, PNGs of the port's K1
+     render of 200k seeded ground-truth surfels, 100k initial points), then
+     `gs_static.main` in process (400k slots, SH 3, 300 steps, densify at
+     100 / 150 / 200, opacity reset at 150, the eval over every 3rd camera,
+     the TSDF mesh over every 4th). Requires: every loss finite; the hooks
+     at STATIC_FIRED, alive moving as their counts say, every opacity <=
+     0.01 after the reset; the eval PSNR STATIC_PSNR_MARGIN dB above the
+     initial store's on the same views; history.json with the JAX keys,
+     the .ply rows = alive; a non-empty fused_mesh.obj inside the fusion
+     volume; launches K1 = steps + 8 eval + 6 depth renders, K2 = steps,
+     no plain call. Then 2 + 8 steps at active SH 3 on one camera, and both
+     kernels against their plain versions on the last one's inputs (timed,
+     with pairs and bounds). Prints the step, hook, eval (render, PSNR,
+     SSIM, LPIPS per view), .ply and extraction (render, fuse_tsdf,
+     marching_tets, weld) times, the entries per frame and the mesh's
+     size.
 The last two lines are a JSON object of per-kernel results and
 {"ok": true, "device": {...}}.
 
@@ -106,6 +132,12 @@ Tolerances (kernel vs plain version, same inputs, float32):
     with pixel coordinates and are orders of magnitude above the opacity,
     colour, normal and extra columns; the floor covers columns whose
     per-pixel terms cancel in the sum.
+Static small step, card vs CPU: loss and PSNR to 1e-3 relative; each
+surfel gradient to STEP_GRAD_REL_TOL * its max |g| + STEP_GRAD_FLOOR * the
+largest, grad_accum to STEP_GRAD_REL_TOL of its max, except at most
+STATIC_SMALL_ROWS surfels, each within STATIC_SMALL_ROW_TOL of the max
+(entries the two devices sort into another order); denom and max_radii2d
+equal.
 Hooks, card vs CPU: info counts and alive masks equal; every float row
 within 1e-6 (relative above magnitude 1: the log-scales and logits reach
 ~10); the outlier masks equal except at slots with an alive neighbour whose
@@ -181,6 +213,38 @@ ROUND_MIN_COVER = 0.05
 ROUND_FIRED = [("densify", 10, 10), ("densify", 20, 20), ("outlier", 20, 20),
                ("densify", 30, 30), ("reset_opacity", 30, 30), ("densify", 40, 40),
                ("outlier", 40, 40), ("densify", 50, 51)]
+# the static 2DGS path (`gs_static.main`): a synthetic COLMAP scene at the
+# width of a MipNeRF-360 outdoor scene as full_eval.py trains it (images at
+# downscale 4: 1237 x 822, PINHOLE; `--downscale 1` since the images are
+# written at that size), 24 cameras on a ring, ground-truth images rendered
+# by the port from 200k seeded surfels on an ellipsoid shell, 100k initial
+# points (the ground truth's centres with noise, wrong colours) in the JAX
+# default 400k slots, SH 3, black background; 300 of the recipe's 30,000
+# steps with the cadence scaled: densify at 100, 150 and 200 (the size
+# rules at 200, after the reset), opacity reset at 150
+STATIC_W, STATIC_H = 1237, 822
+STATIC_GT, STATIC_INIT, STATIC_CAMS, STATIC_CAPACITY = 200_000, 100_000, 24, 400_000
+STATIC_STEPS = 300
+STATIC_FLAGS = ["--iterations", str(STATIC_STEPS), "--densify_from_iter", "50",
+                "--densification_interval", "50", "--densify_until_iter", "250",
+                "--opacity_reset_interval", "150", "--downscale", "1",
+                "--gs_capacity", str(STATIC_CAPACITY)]
+# (hook, step it ran after, max_screen_size for densify)
+STATIC_FIRED = [("densify", 100, 0.0), ("densify", 150, 0.0), ("reset_opacity", 150, None),
+                ("densify", 200, 20.0)]
+STATIC_FULL_SH = (2, 8)  # warm-up, timed steps at active SH 3 on one camera
+# the eval PSNR (every 3rd camera) must beat the initial store's on the same
+# views by this many dB (predicted in PERF.md before the first chip run)
+STATIC_PSNR_MARGIN = 5.0
+# the small static step on the card and on the CPU: 72 x 104 (4.5 x 6.5
+# tiles), 4k surfels, SH 3, white background. The two devices can sort a
+# few entries of equal-looking depth into another order (their quantised
+# depths one code apart), which moves those surfels' gradients: at most
+# STATIC_SMALL_ROWS of them may exceed the step's bound, each within
+# STATIC_SMALL_ROW_TOL of its field's max |g| (measured on the H100: 1 row
+# at 8.5e-3 in xyz and grad_accum, 5 beyond 1e-3)
+STATIC_SMALL = (72, 104, 4096)
+STATIC_SMALL_ROWS, STATIC_SMALL_ROW_TOL = 4, 2e-2
 # the kernels' inputs held against the plain versions, by the step count
 # when they were built: the eval render of round 2 (1 frame, no extra
 # channel, after densify and the outlier prune at 10 and 20) and the step
@@ -1340,6 +1404,366 @@ def cli_path(tmp, rng, device="cuda", capacity=ROUND_CAPACITY, train_res=MAIN_RE
     return rep, total, rec["kept"]
 
 
+def static_small_vs_cpu(rng):
+    """One static `train_step` (STATIC_SMALL: a non-square frame with cut
+    edge tiles, SH 3 with random higher bands, white background) on the
+    card and on the CPU from one state: loss, PSNR, every surfel gradient
+    and the densification statistics; then both kernels against their
+    plain versions on the card step's own inputs."""
+    import torch
+
+    from vidu4d_tpu_torch.engine import gs_trainer
+    from vidu4d_tpu_torch.models.gaussian import surfels as sf
+    from vidu4d_tpu_torch.models.gaussian.optimizer import gs_adam_init
+    from vidu4d_tpu_torch.ops.rasterize import api, common
+
+    h, w, n = STATIC_SMALL
+    rs = np.random.default_rng(11)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    state = sf.init_from_points(f32(rs.normal(size=(n, 3)) * [0.5, 0.35, 0.4]),
+                                f32(rs.uniform(size=(n, 3))), n + 512, sh_degree=3,
+                                generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        state.params.features_rest.copy_(f32(rs.normal(size=(n + 512, 15, 3)) * 0.1))
+    vm = load_test_module("torch_parity").look_at((0.4, -0.5, 2.6))
+    cam = (f32(vm), f32([95.0, 92.0, w / 2 - 0.5, h / 2 + 0.5]), f32(rs.uniform(size=(h, w, 3))))
+    cfg = gs_trainer.GsTrainConfig(white_background=True)
+    runs, kept = {}, {}
+    orig = api.composite_batch
+
+    def composite(prepared, *a, **kw):
+        kept.update({k: prepared[k].detach().clone() if torch.is_tensor(prepared[k])
+                     else prepared[k] for k in KERNEL_INPUTS})
+        return orig(prepared, *a, **kw)
+
+    for dev in ("cpu", "cuda"):
+        st = sf.SurfelState(
+            params=sf.SurfelParams(*[p.detach().clone().to(dev).requires_grad_(True)
+                                     for p in state.params]),
+            alive=state.alive.to(dev), max_radii2d=state.max_radii2d.to(dev),
+            grad_accum=state.grad_accum.to(dev), denom=state.denom.to(dev))
+        p = st.params
+        with torch.no_grad():
+            proj = common.project_splats(p.xyz[None], sf.get_rotation(p)[None],
+                                         sf.get_scaling(p), cam[0].to(dev),
+                                         cam[1].to(dev)[None], mask=st.alive)
+            ids = common.bin_splats_aligned(common.SplatProjection(*[x[0] for x in proj]),
+                                            h, w, entry_cap=0).sorted_splat_ids.cpu()
+        api.composite_batch = composite
+        try:
+            new, _, m = gs_trainer.train_step(st, gs_adam_init(st.params),
+                                              *[x.to(dev) for x in cam], h, w, 3, cfg)
+        finally:
+            api.composite_batch = orig
+        runs[dev] = (new, m, {f: getattr(p, f).grad.cpu()
+                              for f in sf.SurfelParams._fields if f != "regist_feat"}, ids)
+    torch.cuda.synchronize()
+    (s_c, m_c, g_c, ids_c), (s_g, m_g, g_g, ids_g) = runs["cpu"], runs["cuda"]
+    out, bad = {}, []
+    for k in ("loss", "psnr"):
+        a, b = float(m_c[k]), float(m_g[k])
+        out[k] = {"cpu": a, "gpu": b, "rel": abs(a - b) / abs(a)}
+        if not (np.isfinite(b) and abs(a - b) <= STEP_LOSS_REL_TOL * abs(a)):
+            bad.append(k)
+    # entries the two devices sort into another order: a depth one
+    # quantisation code apart flips two splats of a tile, which changes
+    # their compositing order and so their gradients
+    out["entries"] = len(ids_c)
+    out["entries_in_other_order"] = int((ids_c != ids_g).sum())
+    # each field's rows to STEP_GRAD_REL_TOL of its max |g| (+ the floor),
+    # but for at most STATIC_SMALL_ROWS surfels whose gradients such a flip
+    # moved, each within STATIC_SMALL_ROW_TOL of the max
+    acc_c, acc_g = s_c.grad_accum[:, None], s_g.grad_accum.cpu()[:, None]
+    g_all = max(float(g.abs().max()) for g in g_c.values())
+    rows = {}
+    for f, gc, gg in [(f, gc, g_g[f]) for f, gc in g_c.items()] + [("grad_accum", acc_c, acc_g)]:
+        err = (gc - gg).abs().reshape(len(gc), -1).amax(dim=1)
+        scale = float(gc.abs().max())
+        floor = STEP_GRAD_FLOOR * (g_all if f != "grad_accum" else scale)
+        beyond = torch.nonzero(err > STEP_GRAD_REL_TOL * scale + floor).flatten()
+        rows[f] = {"beyond": beyond.tolist(), "worst_over_max": float(err.max()) / scale}
+        if (len(beyond) > STATIC_SMALL_ROWS
+                or float(err.max()) > STATIC_SMALL_ROW_TOL * scale + floor):
+            bad.append(f)
+    for k in ("denom", "max_radii2d"):
+        if not torch.equal(getattr(s_c, k), getattr(s_g, k).cpu()):
+            bad.append(k)
+    out["rows"] = rows
+    out["visible"] = int(s_c.denom.sum())
+    log(f"[static small step cpu-vs-gpu {h}x{w}] {json.dumps(out)}")
+    if bad or out["visible"] < n // 2:
+        raise AssertionError(f"static small step: {bad} differ beyond their tolerance, "
+                             f"{out['visible']} of {n} surfels visible")
+    return compare_kernels(kept, rng, f"static small {h}x{w} (card step's inputs)")
+
+
+def static_path(tmp, rng):
+    """The static 2DGS command line on the card, in process: a synthetic
+    COLMAP scene (`tests/torch_parity.static_scene`, STATIC_* above), then
+    `gs_static.main` with the launch counters from 0, every step, hook,
+    eval and extraction part timed through wrappers; then STATIC_FULL_SH
+    steps at active SH 3 on one camera, whose last inputs hold both kernels
+    against their plain versions (timed). Returns (report, launch counts of
+    `gs_static.main`, the kernel check)."""
+    import torch
+
+    from vidu4d_tpu_torch import gs_static, kernels
+    from vidu4d_tpu_torch.engine import gs_trainer
+    from vidu4d_tpu_torch.models.gaussian import densify as densify_mod
+    from vidu4d_tpu_torch.models.gaussian import extract, ply_io
+    from vidu4d_tpu_torch.models.gaussian import surfels as sf
+    from vidu4d_tpu_torch.ops import image_losses
+    from vidu4d_tpu_torch.ops import lpips as lpips_mod
+    from vidu4d_tpu_torch.ops import marching
+    from vidu4d_tpu_torch.ops import rasterize as raster_pkg
+    from vidu4d_tpu_torch.ops.image_losses import psnr
+    from vidu4d_tpu_torch.ops.rasterize import api, common
+
+    root, out_dir = os.path.join(tmp, "static", "scene"), os.path.join(tmp, "static", "out")
+    t0 = time.perf_counter()
+    load_test_module("torch_parity").static_scene(
+        root, np.random.default_rng(7), STATIC_GT, STATIC_INIT, STATIC_CAMS, STATIC_W,
+        STATIC_H, device="cuda")
+    scene_ms = (time.perf_counter() - t0) * 1e3
+    rec = {"step_ms": [], "hooks": [], "lpips_ms": [], "psnr_ms": [], "ssim_ms": [],
+           "eval_render_ms": [], "bins": [], "keep": False}
+
+    def clock(fn, *a, **kw):
+        torch.cuda.synchronize()
+        t_0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t_0) * 1e3
+
+    @torch.no_grad()
+    def eval_psnr(state, cams, sh_degree):
+        p, vals = state.params, []
+        for cam in cams[::max(1, len(cams) // 8)]:
+            h, w = cam.image.shape[:2]
+            out = api.rasterize(p.xyz, sf.get_rotation(p), sf.get_scaling(p),
+                                sf.get_opacity(p)[:, 0], cam.viewmat, cam.intrins, h, w,
+                                shs=sf.get_features(p), sh_degree=sh_degree, mask=state.alive)
+            vals.append(float(psnr(torch.clamp(out.color, 0, 1).permute(2, 0, 1),
+                                   cam.image.permute(2, 0, 1))))
+        return float(np.mean(vals))
+
+    def train(state, cams, config, *a, **kw):
+        # the initial store's PSNR on the eval views; its launches are not
+        # the entry point's
+        saved = dict(kernels.COUNTS)
+        rec["init_psnr"] = eval_psnr(state, cams, config.sh_degree)
+        kernels.COUNTS.update(saved)
+        rec["alive_init"] = int(state.alive.sum())
+        out, rec["train_ms"] = clock(originals[gs_trainer, "train"], state, cams, config,
+                                     *a, **kw)
+        rec.update(state=out[0], adam=out[1], cams=cams, config=config)
+        return out
+
+    def train_step(*a, **kw):
+        out, ms = clock(originals[gs_trainer, "train_step"], *a, **kw)
+        rec["step_ms"].append(ms)
+        bad = [k for k, v in out[2].items() if not np.isfinite(float(v))]
+        if bad:
+            raise AssertionError(f"[static] step {len(rec['step_ms'])}: non-finite {bad}")
+        return out
+
+    def densify_step(state, adam, noise, extent, max_screen_size, config):
+        before = int(state.alive.sum())
+        out, ms = clock(originals[gs_trainer, "densify_step"], state, adam, noise, extent,
+                        max_screen_size, config)
+        rec["hooks"].append({"hook": "densify", "step": len(rec["step_ms"]), "ms": ms,
+                             "alive_before": before, "alive_after": int(out[0].alive.sum()),
+                             "max_screen_size": max_screen_size,
+                             **{k: int(v) for k, v in out[2].items()}})
+        return out
+
+    def reset_opacity(state, adam):
+        before = int(state.alive.sum())
+        out, ms = clock(originals[densify_mod, "reset_opacity"], state, adam)
+        opac = sf.get_opacity(out[0].params)[:, 0].detach()[out[0].alive]
+        rec["hooks"].append({"hook": "reset_opacity", "step": len(rec["step_ms"]), "ms": ms,
+                             "alive_before": before, "max_opacity_after": float(opac.max())})
+        return out
+
+    def save_ply(*a, **kw):
+        _, rec["ply_ms"] = clock(originals[ply_io, "save_ply"], *a, **kw)
+        rec["eval_t0"] = time.perf_counter()
+
+    def lpips(*a):
+        out, ms = clock(originals[lpips_mod, "lpips"], *a)
+        rec["lpips_ms"].append(ms)
+        return out
+
+    def eval_metric(name):
+        # timed in the eval only (the training loss calls ssim too)
+        def wrapped(*a, **kw):
+            if "eval_t0" not in rec or "eval_ms" in rec:
+                return originals[image_losses, name](*a, **kw)
+            out, ms = clock(originals[image_losses, name], *a, **kw)
+            rec[f"{name}_ms"].append(ms)
+            return out
+        return wrapped
+
+    def rasterize(*a, **kw):
+        out, ms = clock(originals[raster_pkg, "rasterize"], *a, **kw)
+        rec["eval_render_ms"].append(ms)
+        return out
+
+    def extract_mesh(*a, **kw):
+        rec["eval_ms"] = (time.perf_counter() - rec["eval_t0"]) * 1e3
+        out, rec["extract_ms"] = clock(originals[extract, "extract_mesh"], *a, **kw)
+        return out
+
+    def render_depth_maps(*a, **kw):
+        out, rec["extract_render_ms"] = clock(originals[extract, "render_depth_maps"], *a,
+                                              **kw)
+        return out
+
+    def fuse_tsdf(*a, **kw):
+        rec["vol_bnds"] = a[4].cpu().numpy()
+        out, rec["fuse_tsdf_ms"] = clock(originals[extract, "fuse_tsdf"], *a, **kw)
+        return out
+
+    def marching_tets(*a, **kw):
+        out, rec["marching_tets_ms"] = clock(originals[marching, "marching_tets"], *a, **kw)
+        rec["soup_triangles"] = int(out[1].sum())
+        return out
+
+    def weld_vertices(*a, **kw):
+        out, rec["weld_ms"] = clock(originals[marching, "weld_vertices"], *a, **kw)
+        return out
+
+    def bins(*a, **kw):
+        b = originals[common, "bin_splats_aligned"](*a, **kw)
+        rec["bins"].append(int(b.num_entries))
+        return b
+
+    def composite(prepared, *a, **kw):
+        if rec["keep"]:
+            rec["kept"] = {k: prepared[k].detach().clone() if torch.is_tensor(prepared[k])
+                           else prepared[k] for k in KERNEL_INPUTS}
+        return originals[api, "composite_batch"](prepared, *a, **kw)
+
+    wraps = {(gs_trainer, "train"): train, (gs_trainer, "train_step"): train_step,
+             (gs_trainer, "densify_step"): densify_step,
+             (densify_mod, "reset_opacity"): reset_opacity, (ply_io, "save_ply"): save_ply,
+             (lpips_mod, "lpips"): lpips, (image_losses, "psnr"): eval_metric("psnr"),
+             (image_losses, "ssim"): eval_metric("ssim"), (raster_pkg, "rasterize"): rasterize,
+             (extract, "extract_mesh"): extract_mesh,
+             (extract, "render_depth_maps"): render_depth_maps,
+             (extract, "fuse_tsdf"): fuse_tsdf, (marching, "marching_tets"): marching_tets,
+             (marching, "weld_vertices"): weld_vertices,
+             (common, "bin_splats_aligned"): bins, (api, "composite_batch"): composite}
+    originals = {key: getattr(*key) for key in wraps}
+    try:
+        for key, fn in wraps.items():
+            setattr(*key, fn)
+        kernels.reset_counts()
+        _, main_ms = clock(gs_static.main, ["--device", "cuda", f"--source_path_={root}",
+                                            f"--model_path_={out_dir}", *STATIC_FLAGS])
+        counts = dict(kernels.COUNTS)
+        n_bins = len(rec["bins"])
+        # full SH: active degree 3 on camera 0, the last step's inputs kept
+        state, adam, cam = rec["state"], rec["adam"], rec["cams"][0]
+        h, w = cam.image.shape[:2]
+        warm, timed = STATIC_FULL_SH
+        for i in range(warm + timed):
+            rec["keep"] = i == warm + timed - 1
+            state, adam, _ = train_step(state, adam, cam.viewmat, cam.intrins, cam.image,
+                                        h, w, 3, rec["config"])
+        full_sh_ms = rec["step_ms"][-timed:]
+    finally:
+        for key, fn in originals.items():
+            setattr(*key, fn)
+
+    with open(os.path.join(out_dir, "history.json")) as f:
+        hist = json.load(f)
+    verts, faces = marching.load_obj(os.path.join(out_dir, "fused_mesh.obj"))
+    _, ply_rows = ply_io.load_ply(os.path.join(out_dir, "point_cloud.ply"))
+    entries = rec["bins"][:n_bins]
+    rep = {
+        "res": [STATIC_W, STATIC_H], "capacity": STATIC_CAPACITY, "init_points": STATIC_INIT,
+        "gt_surfels": STATIC_GT, "cameras": STATIC_CAMS, "scene_ms": scene_ms,
+        "main_ms": main_ms, "train_ms": rec["train_ms"], "steps": STATIC_STEPS,
+        "step_ms_median": float(np.median(rec["step_ms"][:STATIC_STEPS])),
+        "step_ms_p90": float(np.percentile(rec["step_ms"][:STATIC_STEPS], 90)),
+        "full_sh_step_ms": [round(x, 3) for x in full_sh_ms],
+        "full_sh_step_ms_median": float(np.median(full_sh_ms)),
+        "entries_per_frame": {"min": min(entries), "median": float(np.median(entries)),
+                              "max": max(entries), "frames": len(entries)},
+        "init_psnr": rec["init_psnr"], "eval_psnr": hist[-1]["eval_psnr"],
+        "eval_ssim": hist[-1]["eval_ssim"], "eval_lpips": hist[-1]["eval_lpips"],
+        "lpips_kind": hist[-1]["lpips_kind"], "eval_ms": rec["eval_ms"],
+        "eval_render_ms": [round(x, 3) for x in rec["eval_render_ms"]],
+        "psnr_ms": [round(x, 3) for x in rec["psnr_ms"]],
+        "ssim_ms": [round(x, 3) for x in rec["ssim_ms"]],
+        "lpips_ms": [round(x, 3) for x in rec["lpips_ms"]], "ply_ms": rec["ply_ms"],
+        "extract_ms": rec["extract_ms"], "extract_render_ms": rec["extract_render_ms"],
+        "fuse_tsdf_ms": rec["fuse_tsdf_ms"], "marching_tets_ms": rec["marching_tets_ms"],
+        "weld_ms": rec["weld_ms"], "soup_triangles": rec["soup_triangles"],
+        "mesh_vertices": len(verts), "mesh_faces": len(faces), "ply_rows": ply_rows,
+        "alive_end": hist[-1]["alive"], "history_keys": sorted(hist[-1]), "counts": counts,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+    }
+    for e in rec["hooks"]:
+        log(f"[static hook] {json.dumps(e)}")
+    log(f"[static] {json.dumps(rep)}")
+
+    problems = []
+    if len(rec["step_ms"]) != STATIC_STEPS + sum(STATIC_FULL_SH):
+        problems.append(f"{len(rec['step_ms'])} steps")
+    fired = [(e["hook"], e["step"], e.get("max_screen_size")) for e in rec["hooks"]]
+    if fired != STATIC_FIRED:
+        problems.append(f"hooks fired {fired}, expected {STATIC_FIRED}")
+    dens = [e for e in rec["hooks"] if e["hook"] == "densify"]
+    if not any(e["cloned"] + e["split"] for e in dens):
+        problems.append("no densify cloned or split")
+    # alive moves only by densify, to its info's count, within what its
+    # counts allow
+    expect = rec["alive_init"]
+    if expect != STATIC_INIT:
+        problems.append(f"{expect} alive at the start")
+    for e in rec["hooks"]:
+        if e["alive_before"] != expect:
+            problems.append(f"alive {e['alive_before']} before {e}, expected {expect}")
+        if e["hook"] == "densify":
+            lo = e["alive_before"] - e["split"] - e["pruned"]
+            hi = e["alive_before"] + e["cloned"] + e["split"]
+            if not (e["alive_after"] == e["alive"] and lo <= e["alive"] <= hi):
+                problems.append(f"densify alive {e['alive_after']} vs its info {e}")
+            expect = e["alive"]
+        elif e["max_opacity_after"] > 0.01 + 1e-6:
+            problems.append(f"opacity above 0.01 after the reset: {e}")
+    if not rep["alive_end"] == ply_rows == expect:
+        problems.append(f"alive at the end {rep['alive_end']}, ply rows {ply_rows}, "
+                        f"expected {expect}")
+    if not rep["eval_psnr"] >= rep["init_psnr"] + STATIC_PSNR_MARGIN:
+        problems.append(f"eval PSNR {rep['eval_psnr']} not {STATIC_PSNR_MARGIN} dB above "
+                        f"the initial store's {rep['init_psnr']}")
+    if set(hist[-1]) != {"loss", "psnr", "alive", "iter", "elapsed", "eval_psnr",
+                         "eval_ssim", "eval_lpips", "lpips_kind"} or len(hist) != 3:
+        problems.append(f"history {len(hist)} entries, keys {sorted(hist[-1])}")
+    bnds = rec["vol_bnds"]
+    slack = 1e-4 * float(np.linalg.norm(bnds[1] - bnds[0]))
+    if not len(faces) or not (np.all(verts >= bnds[0] - slack) and np.all(verts <= bnds[1] + slack)):
+        problems.append(f"mesh of {len(faces)} faces, vertices in {verts.min(0)} .. "
+                        f"{verts.max(0)} vs volume {bnds.tolist()}")
+    n_eval, n_extract = len(rec["eval_render_ms"]), -(-STATIC_CAMS // 4)
+    if n_eval != STATIC_CAMS // (STATIC_CAMS // 8) or not (
+            len(rec["lpips_ms"]) == len(rec["psnr_ms"]) == len(rec["ssim_ms"]) == n_eval):
+        problems.append(f"{n_eval} eval renders, {len(rec['lpips_ms'])} LPIPS, "
+                        f"{len(rec['psnr_ms'])} PSNR, {len(rec['ssim_ms'])} SSIM")
+    if (counts["tile_forward"] != STATIC_STEPS + n_eval + n_extract
+            or counts["tile_backward"] != STATIC_STEPS
+            or counts["tile_forward_plain"] or counts["tile_backward_plain"]):
+        problems.append(f"launch counts {counts}")
+    if problems:
+        raise AssertionError(f"[static] {problems}")
+    check = compare_kernels(rec["kept"], rng, f"static {STATIC_W}x{STATIC_H} full SH",
+                            reps_p=1, timed=True)
+    return rep, counts, check
+
+
 def main() -> int:
     import torch
 
@@ -1455,6 +1879,13 @@ def main() -> int:
                                     f"cli ref render {CLI_RENDER_RES}^2", reps_p=1,
                                     timed=True)
         del ref_inputs
+        torch.cuda.empty_cache()
+
+        # the static 2DGS path: a small step on the card vs the CPU, then
+        # gs_static at 1237 x 822
+        static_small_vs_cpu(rng)
+        torch.cuda.reset_peak_memory_stats()
+        static_rep, static_counts, static_cmp = static_path(tmp, rng)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1476,7 +1907,13 @@ def main() -> int:
          "render512_max_abs_err": render512[f"{key}_max_abs_err"],
          "render512_ms": render512[f"{key}_ms"],
          "render512_plain_ms": render512[f"{key}_plain_ms"],
-         "render512_bound_ms": render512["bounds"][name]["bound_ms"]}
+         "render512_bound_ms": render512["bounds"][name]["bound_ms"],
+         # gs_static at 1237 x 822: launches of gs_static.main; the check
+         # and times on the inputs of a full-SH step
+         "static_launches": static_counts[name],
+         "static_max_abs_err": static_cmp[f"{key}_max_abs_err"],
+         "static_ms": static_cmp[f"{key}_ms"], "static_plain_ms": static_cmp[f"{key}_plain_ms"],
+         "static_bound_ms": static_cmp["bounds"][name]["bound_ms"]}
         for name, key, replaces in (
             ("tile_forward", "fwd", "vidu4d_tpu/ops/rasterize/pallas_kernel.py:111"),
             ("tile_backward", "bwd", "vidu4d_tpu/ops/rasterize/pallas_backward.py:95"))
@@ -1495,7 +1932,15 @@ def main() -> int:
         f"(plain {render512['fwd_plain_ms']:.3f}, "
         f"bound {render512['bounds']['tile_forward']['bound_ms']:.4f}), "
         f"K2 {render512['bwd_ms']:.3f} ms (plain {render512['bwd_plain_ms']:.3f}, "
-        f"bound {render512['bounds']['tile_backward']['bound_ms']:.4f})")
+        f"bound {render512['bounds']['tile_backward']['bound_ms']:.4f}); "
+        f"static {STATIC_W}x{STATIC_H}: median step {static_rep['step_ms_median']:.3f} ms "
+        f"(full SH {static_rep['full_sh_step_ms_median']:.3f}), eval PSNR "
+        f"{static_rep['eval_psnr']:.3f} dB (init {static_rep['init_psnr']:.3f}), eval "
+        f"{static_rep['eval_ms']:.1f} ms, extract {static_rep['extract_ms']:.1f} ms, "
+        f"K1 {static_cmp['fwd_ms']:.3f} ms (plain {static_cmp['fwd_plain_ms']:.3f}, bound "
+        f"{static_cmp['bounds']['tile_forward']['bound_ms']:.4f}), K2 "
+        f"{static_cmp['bwd_ms']:.3f} ms (plain {static_cmp['bwd_plain_ms']:.3f}, bound "
+        f"{static_cmp['bounds']['tile_backward']['bound_ms']:.4f})")
     log(f"[wall] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

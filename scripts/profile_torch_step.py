@@ -1,11 +1,15 @@
-"""Profile the port's Stage-3 step on one CUDA GPU with torch.profiler.
+"""Profile the port's Stage-3 step (or the static 2DGS step) on one CUDA
+GPU with torch.profiler.
 
-    python3 scripts/profile_torch_step.py [--reduced]
+    python3 scripts/profile_torch_step.py [--reduced | --static]
 
 Builds the chip_smoke.py workload (200k surfels, 256x256, 2 frames;
 calibrated cloud, one fixed batch) in the default configuration (with
 --reduced: --nogs_optim_warp --rgb_loss_only --flow_wt 0), warms up, then
-profiles a few steps.
+profiles a few steps. With --static: chip_smoke.py's static scene (1237 x
+822, `tests/torch_parity.static_scene`), its 100k initial points in 400k
+slots as `gs_static` starts them, `gs_trainer.train_step` at SH 0 on
+camera 0.
 Prints the card, the wall time per step, the summed device time per step,
 the device busy share, the top kernels by self device time, and the op
 table.
@@ -24,6 +28,37 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 STEPS = 5
 
 
+def static_step(tmp):
+    """A closure that takes one static `train_step` on chip_smoke.py's
+    static scene, from the store `gs_static` starts."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from vidu4d_tpu_torch import gs_static
+    from vidu4d_tpu_torch.data.scene_readers import read_scene
+    from vidu4d_tpu_torch.engine import gs_trainer
+    from vidu4d_tpu_torch.models.gaussian import surfels as sf
+    from vidu4d_tpu_torch.models.gaussian.optimizer import gs_adam_init
+
+    cs.load_test_module("torch_parity").static_scene(
+        tmp, np.random.default_rng(7), cs.STATIC_GT, cs.STATIC_INIT, cs.STATIC_CAMS,
+        cs.STATIC_W, cs.STATIC_H, device="cuda")
+    scene = read_scene(tmp)
+    cam = gs_static.load_camera(scene.train_cameras[0], 1, "cuda")
+    as_t = lambda a: torch.as_tensor(a, device="cuda")
+    state = sf.init_from_points(as_t(scene.points), as_t(scene.colors), cs.STATIC_CAPACITY,
+                                sh_degree=3, generator=torch.Generator("cuda").manual_seed(0))
+    box = [state, gs_adam_init(state.params)]
+    cfg = gs_trainer.GsTrainConfig()
+    h, w = cam.image.shape[:2]
+
+    def step():
+        box[0], box[1], _ = gs_trainer.train_step(box[0], box[1], cam.viewmat, cam.intrins,
+                                                  cam.image, h, w, 0, cfg)
+    return step
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -31,29 +66,38 @@ def main() -> int:
     import chip_smoke
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--reduced", action="store_true",
-                    help="profile --nogs_optim_warp --rgb_loss_only --flow_wt 0")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--reduced", action="store_true",
+                      help="profile --nogs_optim_warp --rgb_loss_only --flow_wt 0")
+    mode.add_argument("--static", action="store_true",
+                      help="profile the static 2DGS step at 1237 x 822")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_step: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(chip_smoke.gpu_name_and_power())
-    print(f"configuration: {'reduced' if args.reduced else 'default'}")
+    print("configuration: " + ("static" if args.static
+                               else "reduced" if args.reduced else "default"))
     with tempfile.TemporaryDirectory() as tmp:
-        trainer, batch = chip_smoke.build_trainer(tmp, "cuda", chip_smoke.MAIN_SURFELS,
-                                                  chip_smoke.MAIN_RES, reduced=args.reduced)
+        if args.static:
+            step = static_step(tmp)
+        else:
+            trainer, batch = chip_smoke.build_trainer(tmp, "cuda", chip_smoke.MAIN_SURFELS,
+                                                      chip_smoke.MAIN_RES,
+                                                      reduced=args.reduced)
+            step = lambda: trainer.train_step(batch)
         for _ in range(3):
-            trainer.train_step(batch)
+            step()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(STEPS):
-            trainer.train_step(batch)
+            step()
         torch.cuda.synchronize()
         plain_wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(STEPS):
-                trainer.train_step(batch)
+                step()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
     events = prof.key_averages()

@@ -133,18 +133,21 @@ def test_mean_knn_sq_dist():
 
 def test_port_imports_no_jax():
     """Every module of the port (the CLI entry points and their config
-    among them), and chip_smoke.py, imports without jax and without any
-    module of the JAX package (in a fresh process)."""
+    among them, the static 2DGS path's too), and chip_smoke.py, imports
+    without jax and without any module of the JAX package (in a fresh
+    process)."""
     code = (
         "import pkgutil, sys, importlib, vidu4d_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(vidu4d_tpu_torch.__path__, "
         "'vidu4d_tpu_torch.')]\n"
         "[importlib.import_module(m) for m in mods]\n"
-        "entry = {'vidu4d_tpu_torch.' + m for m in ('config', 'train', 'render', 'export',\n"
-        "                                          'reanimate')}\n"
+        "entry = {'vidu4d_tpu_torch.' + m for m in (\n"
+        "    'config', 'train', 'render', 'export', 'reanimate', 'gs_static', 'metrics',\n"
+        "    'full_eval', 'engine.gs_trainer', 'data.scene_readers', 'utils.network_gui',\n"
+        "    'ops.lpips', 'preprocess.tsdf', 'models.gaussian.extract')}\n"
         "assert entry <= set(mods), sorted(entry - set(mods))\n"
         "import chip_smoke\n"
-        "assert len(mods) >= 20, mods\n"
+        "assert len(mods) >= 30, mods\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'vidu4d_tpu' or m.startswith('vidu4d_tpu.')]\n"
         "assert not bad, bad\n"
@@ -153,4 +156,4 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 30

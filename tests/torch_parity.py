@@ -163,3 +163,130 @@ def write_stage2_output(s2_dir, db, res, rng, mesh=(96, 128), axes=(0.10, 0.12, 
     with open(ckpt, "wb") as f:
         pickle.dump({"current_steps": 0, "current_round": 20, "params": params}, f)
     return mesh_path, ckpt, {k: v.detach().clone() for k, v in d.state_dict().items()}
+
+
+def look_at(eye, target=(0.0, 0.0, 0.0), down=(0.0, 1.0, 0.0)) -> np.ndarray:
+    """(4, 4) float32 world-to-camera matrix (x right, y down, z forward)
+    of a camera at ``eye`` looking at ``target``; ``down`` is the world
+    direction that appears downwards."""
+    eye, target = np.asarray(eye, np.float64), np.asarray(target, np.float64)
+    fwd = (target - eye) / np.linalg.norm(target - eye)
+    right = np.cross(np.asarray(down, np.float64), fwd)
+    right /= np.linalg.norm(right)
+    rot = np.stack([right, np.cross(fwd, right), fwd])
+    vm = np.eye(4)
+    vm[:3, :3], vm[:3, 3] = rot, -rot @ eye
+    return vm.astype(np.float32)
+
+
+def write_colmap_scene(root, viewmats, intrins, width, height, images, points, colors):
+    """A COLMAP binary reconstruction in ``root``: ``sparse/0/cameras.bin``
+    (one PINHOLE camera, intrinsics fx, fy, cx, cy), ``images.bin`` (one
+    image per viewmat, named ``NNN.png``, no 2D points), ``points3D.bin``
+    (points (N, 3), colours (N, 3) in [0, 1], empty tracks) and the images
+    (uint8 (H, W, 3)) under ``images/``."""
+    import os
+    import struct
+
+    from vidu4d_tpu_torch.utils.io import write_png
+
+    sparse = os.path.join(root, "sparse", "0")
+    os.makedirs(sparse, exist_ok=True)
+    with open(os.path.join(sparse, "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<Q", 1) + struct.pack("<iiQQ", 1, 1, width, height)
+                + struct.pack("<4d", *[float(v) for v in intrins]))
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(viewmats)))
+        for i, vm in enumerate(viewmats):
+            f.write(struct.pack("<I", i + 1) + struct.pack("<4d", *rot_to_qvec(vm[:3, :3]))
+                    + struct.pack("<3d", *[float(v) for v in vm[:3, 3]])
+                    + struct.pack("<I", 1) + f"{i:03d}.png".encode() + b"\x00"
+                    + struct.pack("<Q", 0))
+    rgb = np.clip(np.round(np.asarray(colors) * 255), 0, 255).astype(np.uint8)
+    rows = np.zeros(len(points), dtype=[("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3),
+                                        ("err", "<f8"), ("track", "<u8")])
+    rows["id"] = np.arange(1, len(points) + 1)
+    rows["xyz"], rows["rgb"] = points, rgb
+    with open(os.path.join(sparse, "points3D.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(points)) + rows.tobytes())
+    for i, img in enumerate(images):
+        write_png(os.path.join(root, "images", f"{i:03d}.png"), img)
+
+
+def static_scene(root, rng, n_gt, n_init, n_cams, width, height, device="cpu"):
+    """A synthetic static scene written as a COLMAP reconstruction in
+    ``root``: ``n_gt`` opaque ground-truth surfels tangent to an ellipsoid
+    shell of semi-axes 1.6, 1.1, 1.6 (colours a smooth texture of
+    position), rendered by the port (`ops.rasterize.rasterize`, SH degree
+    0, black background) from ``n_cams`` cameras on a ring at 4.5 around it
+    (PINHOLE, focal 1010 / 1237 x width, principal point at the centre)
+    into ``width`` x ``height`` PNGs; and ``n_init`` initial points:
+    ground-truth centres with 2% noise of the mean axis and uniform random
+    colours."""
+    import torch
+
+    from vidu4d_tpu_torch.ops.rasterize import rasterize
+    from vidu4d_tpu_torch.ops.sh import rgb_to_sh
+
+    axes, cam_dist, focal = np.array([1.6, 1.1, 1.6]), 4.5, 1010.0 / 1237
+    u = rng.normal(size=(n_gt, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    pts = u * axes
+    normal = pts / axes ** 2
+    normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
+    tangent = np.cross(normal, rng.normal(size=(n_gt, 3)))
+    tangent /= np.linalg.norm(tangent, axis=-1, keepdims=True)
+    rot = np.stack([tangent, np.cross(normal, tangent), normal], axis=-1)  # columns
+    quats = rot_to_qvec(rot)
+    cols = 0.5 + 0.4 * np.stack([np.sin(3.0 * pts[:, 0] + 1.0), np.sin(4.0 * pts[:, 1]),
+                                 np.cos(3.5 * pts[:, 2] - 0.5 * pts[:, 0])], axis=-1)
+    area = 4 * np.pi * (np.prod(axes) ** (2 / 3))  # ~ the ellipsoid's area
+    sigma = 0.8 * np.sqrt(area / n_gt)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    intrins = np.array([focal * width, focal * width, width / 2, height / 2], np.float32)
+    viewmats, images = [], []
+    with torch.no_grad():
+        for k in range(n_cams):
+            ang = 2 * np.pi * k / n_cams
+            eye = cam_dist * np.array([np.sin(ang), -0.25, np.cos(ang)])
+            vm = look_at(eye)
+            out = rasterize(t(pts), t(quats), t(np.full((n_gt, 2), sigma)),
+                            t(np.full(n_gt, 0.9)), t(vm), t(intrins), height, width,
+                            shs=t(rgb_to_sh(torch.as_tensor(cols)).numpy()[:, None, :]),
+                            sh_degree=0)
+            viewmats.append(vm)
+            images.append(np.round(np.clip(out.color.cpu().numpy(), 0, 1) * 255)
+                          .astype(np.uint8))
+    init = rng.choice(n_gt, size=n_init, replace=n_init > n_gt)
+    init_pts = pts[init] + rng.normal(size=(n_init, 3)) * 0.02 * axes.mean()
+    write_colmap_scene(root, viewmats, intrins, width, height, images, init_pts,
+                       rng.uniform(size=(n_init, 3)))
+
+
+def rot_to_qvec(rot: np.ndarray) -> np.ndarray:
+    """Rotation matrices (..., 3, 3) -> COLMAP's (w, x, y, z) unit
+    quaternions (..., 4) with w >= 0 (the branch on the largest of w, x,
+    y, z, vectorised)."""
+    lead = np.shape(rot)[:-2]
+    m = np.asarray(rot, np.float64).reshape(-1, 3, 3)
+    tr = m[:, 0, 0] + m[:, 1, 1] + m[:, 2, 2]
+    cand = np.stack([tr, m[:, 0, 0], m[:, 1, 1], m[:, 2, 2]], axis=-1)
+    which = np.argmax(cand, axis=-1)
+    q = np.zeros((len(m), 4))
+    for b in range(4):
+        s = which == b
+        r = m[s]
+        if b == 0:
+            d = np.sqrt(1.0 + tr[s]) * 2
+            q[s] = np.stack([0.25 * d, (r[:, 2, 1] - r[:, 1, 2]) / d,
+                             (r[:, 0, 2] - r[:, 2, 0]) / d, (r[:, 1, 0] - r[:, 0, 1]) / d], -1)
+        else:
+            i, j, k = (b - 1), b % 3, (b + 1) % 3
+            d = np.sqrt(1.0 + r[:, i, i] - r[:, j, j] - r[:, k, k]) * 2
+            qq = np.zeros((len(r), 4))
+            qq[:, 0] = (r[:, k, j] - r[:, j, k]) / d
+            qq[:, 1 + i] = 0.25 * d
+            qq[:, 1 + j] = (r[:, j, i] + r[:, i, j]) / d
+            qq[:, 1 + k] = (r[:, k, i] + r[:, i, k]) / d
+            q[s] = qq
+    return (q * np.where(q[:, :1] < 0, -1.0, 1.0)).reshape(lead + (4,))

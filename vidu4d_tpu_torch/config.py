@@ -11,6 +11,9 @@ a parser of absl's command-line and flagfile syntax on the standard library:
 - ``--flagfile=PATH`` (recursively), expanded in place, so later flags
   override earlier ones.
 
+The static 2DGS and metrics CLIs add their own tables (``GS_STATIC_FLAGS``,
+``METRICS_FLAGS``).
+
 An ``opts.log`` written by the JAX ``save_config()`` also holds absl's own
 flags (``--verbosity``, ``--logtostderr``, ...); those are ignored. Any
 other flag the table does not know raises.
@@ -106,6 +109,13 @@ EXPORT_FLAGS = {
     "export_mesh_stride": (I, 1),
 }
 REANIMATE_FLAGS = {**RENDER_FLAGS, "motion_path": (S, "")}
+# the static 2DGS CLI's (`gs_static.py:21-26`) and the metrics CLI's
+# (`metrics.py:18-19`) own flags
+GS_STATIC_FLAGS = {
+    "source_path_": (S, ""), "model_path_": (S, "out_gs"), "extract_mesh": (B, True),
+    "downscale": (I, 1), "gui_ip": (S, ""), "gui_port": (I, 6323),
+}
+METRICS_FLAGS = {"pred_dir": (S, ""), "gt_dir": (S, "")}
 
 # the port's entry-point flag, never written to opts.log: the device the
 # entry point runs on (the card unless the CPU is asked for)

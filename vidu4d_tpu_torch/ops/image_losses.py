@@ -1,4 +1,4 @@
-"""Image reconstruction losses / metrics: L1, MSE, PSNR, SSIM
+"""Image reconstruction losses / metrics: L1, MSE, PSNR, SSIM, DSSIM + L1
 (`vidu4d_tpu/ops/image_losses.py`).
 
 SSIM: 11x11 Gaussian window with sigma 1.5, per-channel (depthwise)
@@ -51,3 +51,11 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11) -> torch
     ssim_map = ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / (
         (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2))
     return ssim_map.mean(dim=(1, 2, 3)).reshape(lead)
+
+
+def dssim_l1_loss(pred: torch.Tensor, target: torch.Tensor,
+                  lambda_dssim: float = 0.2) -> torch.Tensor:
+    """The standard 3DGS photometric loss on (C, H, W) images:
+    (1 - lambda) L1 + lambda (1 - SSIM) (`image_losses.py:73`)."""
+    return (1.0 - lambda_dssim) * l1_loss(pred, target) + lambda_dssim * (
+        1.0 - ssim(pred, target))

@@ -63,9 +63,12 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
 def eval_sh_color(deg: int, sh: torch.Tensor, means: torch.Tensor,
                   cam_pos: torch.Tensor) -> torch.Tensor:
     """SH -> RGB as the rasterizer preprocess does: view direction from the
-    camera centre to the splat, +0.5 shift, clamp at 0."""
+    camera centre to the splat, +0.5 shift, clamp at 0. The clamp is a
+    maximum, as JAX's: at a colour of exactly 0 (an RGB byte of 0 gives
+    one) half the gradient passes, where ``torch.clamp`` would pass all."""
     dirs = means - cam_pos
     dirs = dirs / torch.sqrt(
         torch.clamp(torch.sum(dirs * dirs, dim=-1, keepdim=True), min=1e-24)
     )
-    return torch.clamp(eval_sh(deg, sh, dirs) + 0.5, min=0.0)
+    rgb = eval_sh(deg, sh, dirs) + 0.5
+    return torch.maximum(rgb, rgb.new_zeros(()))
