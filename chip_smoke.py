@@ -117,6 +117,28 @@ Phases (any failed check raises, so the exit code is non-zero):
      SSIM, LPIPS per view), .ply and extraction (render, fuse_tsdf,
      marching_tets, weld) times, the entries per frame and the mesh's
      size.
+ 14. Stage 2 (`stage2_small_vs_cpu`, `stage2_path`): 2 steps of a small
+     configuration (S2_SMALL, 32^2) on the CPU and on the card in float64
+     from one state, batch and draws (every loss term, gnorm, every
+     gradient, the parameters after each AdamW update); then the README's
+     Stage-2 recipe (S2_FLAGS: bob, --rgb_timefree --rgb_dirfree, 256 pairs
+     x 16 pixels x 64 samples = 524,288 samples per step, an 8 x 256 field)
+     on make_fake_db(T=16) at 256^2 through the port's entry points:
+     `Stage2Trainer` with the command line's options, its full `mlp_init`
+     (the prior fits, 1000 SDF pretrain steps; the proxy mesh's mean radius
+     in S2_RADIUS), `train()` for 2 rounds of 20 steps. Requires every loss
+     term of the configuration (S2_TERMS) finite in every step, gnorm
+     finite, >= 90% of the parameters moved, a non-empty 001-fg-geo.obj,
+     001-fg-feat.npy of 16 unit channels (within 1e-3), the last checkpoint
+     reloaded into a fresh trainer bitwise (parameters, field state,
+     optimiser, steps). Then `render.main` at 512^2 on 2 frames (chunks of
+     RENDER_CHUNK rays): finite, (2, 512, 512, 3), mask > 0.01 on some pixel
+     of each frame; and the hand-off: `train.main --fg_motion gs-bob` from
+     this run's own mesh and checkpoint, 2 steps: finite losses, K1 and K2
+     launched, no plain version. Prints mlp_init (each fit's steps and
+     seconds, the SDF pretrain), every step's ms (median, p90), the host
+     batch ms, peak memory, round times, update_geometry_aux and
+     export_geometry ms, the render's time and cover, the hand-off's.
 The last two lines are a JSON object of per-kernel results and
 {"ok": true, "device": {...}}.
 
@@ -143,6 +165,10 @@ within 1e-6 (relative above magnitude 1: the log-scales and logits reach
 ~10); the outlier masks equal except at slots with an alive neighbour whose
 squared distance is within 1e-6 r^2 + 4 eps32 (|q|^2 + |p|^2) of r^2 (the
 float32 rounding of |q|^2 + |p|^2 - 2 q.p), which are listed.
+Stage-2 small step, card vs CPU, float64: each loss term and gnorm within
+1e-9 relative; each parameter's gradient within 1e-7 of its max |g| +
+1e-10 of the largest; parameters after each update within 1e-6 x lr x
+multiplier + 4 ulp.
 Whole small step, card vs CPU: each loss to 1e-3 relative + 1e-8 (the
 cycle term is a difference of nearly equal points), gnorm 1e-3 relative;
 gradients of each surfel field and deformer parameter to STEP_GRAD_REL_TOL
@@ -286,6 +312,30 @@ OPS_RESPONSE = 33
 # multiplies and adds, so this bound is below what they could reach.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+# Stage 2 (stage2_path): the README recipe (--fg_motion bob --rgb_timefree
+# --rgb_dirfree, every other flag at its default: 256 pairs x 16 pixels, 64
+# samples per ray, an 8 x 256 field, 25 bones) on make_fake_db(T=16) at
+# 256^2, 2 rounds of 20 steps. The learning rate is CLI_WARP_LR's: 2 rounds
+# squeeze the OneCycle warm-up that the recipe spreads over 2 of 21 rounds.
+S2_RES, S2_FRAMES, S2_ROUNDS, S2_ITERS = 256, 16, 2, 20
+S2_FLAGS = ["--seqname", "toy", "--logname", "s2", "--fg_motion", "bob", "--rgb_timefree",
+            "--rgb_dirfree", "--train_res", str(S2_RES), "--num_rounds", str(S2_ROUNDS),
+            "--iters_per_round", str(S2_ITERS), "--save_freq", "1", "--seed", "0",
+            "--learning_rate", "3e-5"]
+S2_TERMS = {"mask", "feature", "feat_reproj", "rgb", "depth", "flow", "vis", "reg_gauss_mask",
+            "reg_eikonal", "reg_deform_cyc", "reg_delta_skin", "reg_skin_entropy",
+            "reg_visibility", "reg_gauss_skin", "reg_cam_prior"}
+S2_RADIUS = (0.04, 0.2)  # proxy mesh mean radius after mlp_init (the 0.1 sphere)
+S2_RENDER_RES, S2_RENDER_FRAMES, S2_HANDOFF_STEPS = 512, 2, 2
+# the small Stage-2 step on the card vs the CPU (field depth 2, width 32, 8
+# samples, 4 pairs x 8 pixels, 2 steps, the same state, batch and draws) runs
+# in float64: in float32 the camera and intrinsics gradients are
+# ill-conditioned (the colour field's 12-band encoding; a 1e-6 relative
+# change of the parameters moves them by 4-15%, tests/test_torch_dyn_nerf.py)
+S2_SMALL = {"field_depth": 2, "field_width": 32, "train_depth_samples": 8,
+            "imgs_per_gpu": 4, "pixels_per_image": 8}
+S2_SMALL_LOSS_RTOL, S2_SMALL_GRAD_REL, S2_SMALL_GRAD_FLOOR = 1e-9, 1e-7, 1e-10
+S2_SMALL_SDF_ITERS = 200  # the small step's SDF pretrain (in float32, on the CPU)
 
 
 def log(msg: str) -> None:
@@ -1764,6 +1814,263 @@ def static_path(tmp, rng):
     return rep, counts, check
 
 
+def stage2_small_vs_cpu(tmp):
+    """2 Stage-2 steps of a small configuration (S2_SMALL, 32^2) on the CPU
+    and on the card in float64, from the same parameters (the CPU
+    trainer's after `mlp_init` with S2_SMALL_SDF_ITERS pretrain steps),
+    field state, batch and draws: every loss term and gnorm within S2_SMALL_LOSS_RTOL; each
+    parameter's gradient within S2_SMALL_GRAD_REL of its max |g| +
+    S2_SMALL_GRAD_FLOOR of the largest; the parameters after each AdamW
+    update within 1e-6 of a step (lr x multiplier) + 4 ulp."""
+    import torch
+
+    from vidu4d_tpu_torch.engine.optim import lr_multiplier, make_stage2_optimizer
+    from vidu4d_tpu_torch.engine.trainer import Stage2Trainer
+    from vidu4d_tpu_torch.models.fields.dyn_nerf import FieldState
+
+    run = os.path.join(tmp, "s2small")
+    db = load_test_module("helpers").make_fake_db(run, num_vids=1, T=8, H=32, W=32)
+    opts = {"dataroot": db, "seqname": "toy", "logroot": os.path.join(run, "logdir"),
+            "data_prefix": "crop", "train_res": 32, "fg_motion": "bob", "rgb_timefree": True,
+            "rgb_dirfree": True, "num_rounds": 1, "iters_per_round": 2, "seed": 0,
+            "learning_rate": 5e-4, **S2_SMALL}
+    f64 = lambda d, dev: {k: (v.double() if v.is_floating_point() else v).to(dev)
+                          for k, v in d.items()}
+    cpu = Stage2Trainer({**opts, "logname": "small_cpu"}, "cpu")
+    gpu = Stage2Trainer({**opts, "logname": "small_gpu"}, "cuda")
+    # the state a step starts from: the prior fits and a short SDF pretrain
+    # (from the random init every ray's mask is ~1, and the mask loss's
+    # nonzero mean then counts entries of ~1e-30)
+    cpu.mlp_init(sdf_iters=S2_SMALL_SDF_ITERS, verbose=False)
+    for tr in (cpu, gpu):
+        tr.model.double()
+        tr.states = {c: FieldState(*[x.double().to(tr.device) for x in st])
+                     for c, st in cpu.states.items()}
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    for tr in (cpu, gpu):
+        tr.optimizer = make_stage2_optimizer(tr.model, opts["learning_rate"], 2, 1)
+    batch = cpu._next_batch()
+    draws = cpu.model.reg_draws(torch.Generator().manual_seed(0))
+    worst = {"loss": 0.0, "grad": 0.0, "param": 0.0}
+    for step in range(2):
+        m_cpu = cpu.train_step(f64(batch, "cpu"), f64(draws, "cpu"))
+        m_gpu = gpu.train_step(f64(batch, "cuda"), f64(draws, "cuda"))
+        torch.cuda.synchronize()
+        if set(m_cpu) != S2_TERMS | {"total", "gnorm"} or set(m_gpu) != set(m_cpu):
+            raise AssertionError(f"stage-2 small step terms: {sorted(m_cpu)} / {sorted(m_gpu)}")
+        for k in m_cpu:
+            a, b = float(m_cpu[k]), float(m_gpu[k])
+            rel = abs(a - b) / max(abs(a), 1e-300)
+            worst["loss"] = max(worst["loss"], rel)
+            if not (np.isfinite(a) and rel <= S2_SMALL_LOSS_RTOL):
+                raise AssertionError(f"stage-2 small step {step} {k}: cpu {a!r} gpu {b!r}")
+        pc = dict(cpu.model.named_parameters())
+        pg = dict(gpu.model.named_parameters())
+        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)) for k, p in pc.items()}
+        floor = S2_SMALL_GRAD_FLOOR * max(float(g.abs().max()) for g in grads.values())
+        lr = cpu.optimizer.schedule(step)
+        for k, p in pc.items():
+            g_gpu = pg[k].grad.cpu() if pg[k].grad is not None else torch.zeros_like(p)
+            err = float((g_gpu - grads[k]).abs().max())
+            scale = float(grads[k].abs().max())
+            worst["grad"] = max(worst["grad"], err / (scale + floor))
+            if err > S2_SMALL_GRAD_REL * scale + floor:
+                raise AssertionError(f"stage-2 small step {step} grad {k}: {err} vs {scale}")
+            bound = 1e-6 * lr * lr_multiplier(k) + 4 * torch.finfo(p.dtype).eps * p.detach().abs()
+            diff = (pg[k].detach().cpu() - p.detach()).abs()
+            worst["param"] = max(worst["param"], float((diff / bound).max()))
+            if (diff > bound).any():
+                raise AssertionError(f"stage-2 small step {step} param {k}: "
+                                     f"{float(diff.max())}")
+        for tr in (cpu, gpu):
+            tr.current_steps += 1
+    log(f"[stage2 small step cpu-vs-gpu float64] {json.dumps(worst)} "
+        f"(loss: max relative difference; grad, param: max share of their bounds)")
+
+
+def stage2_path(tmp):
+    """The README recipe's Stage 2 on the card through the port's entry
+    points (see S2_FLAGS), in a run directory holding make_fake_db(T=16) at
+    256^2: `Stage2Trainer` with the command line's options, its full
+    `mlp_init`, `train()` for S2_ROUNDS rounds of S2_ITERS steps with a
+    checkpoint per round, the last checkpoint reloaded into a fresh trainer;
+    then `render.main` at S2_RENDER_RES^2 on S2_RENDER_FRAMES frames (in
+    chunks of rays) and the hand-off: `train.main --fg_motion gs-bob` from
+    this run's own 001-fg-geo.obj and ckpt_latest.pth for S2_HANDOFF_STEPS
+    steps. Returns (report, kernel launches of the Stage-2 training, of
+    the hand-off)."""
+    import torch
+
+    from vidu4d_tpu_torch import config, kernels
+    from vidu4d_tpu_torch import render as render_cli
+    from vidu4d_tpu_torch import train as train_cli
+    from vidu4d_tpu_torch.engine import trainer as s2
+    from vidu4d_tpu_torch.engine.gs4d_trainer import Stage3Trainer
+    from vidu4d_tpu_torch.models.fields.dyn_nerf import FieldState
+
+    run = os.path.join(tmp, "s2")
+    os.makedirs(run)
+    load_test_module("helpers").make_fake_db(run, num_vids=1, T=S2_FRAMES, H=S2_RES, W=S2_RES)
+    cwd = os.getcwd()
+    os.chdir(run)  # the command line reads database/ from the working directory
+    rep = {"step_ms": [], "batch_ms": [], "aux_ms": [], "export_ms": []}
+    originals = {}
+
+    def timed(cls, name, key):
+        fn = getattr(cls, name)
+        originals[cls, name] = fn
+
+        def wrapper(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, *a, **kw)
+            torch.cuda.synchronize()
+            rep[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        setattr(cls, name, wrapper)
+
+    def restore():
+        for (cls, name), fn in originals.items():
+            setattr(cls, name, fn)
+        originals.clear()
+
+    try:
+        opts = config.parse_flags(S2_FLAGS)
+        opts.pop("device")
+        config.save_config(opts)
+        trainer = s2.Stage2Trainer(opts, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = trainer.mlp_init()
+        torch.cuda.synchronize()
+        rep["mlp_init_s"] = time.perf_counter() - t0
+        rep["mlp_init"] = info
+        verts = trainer._proxy_mesh[0] if trainer._proxy_mesh is not None else np.zeros((0, 3))
+        radius = float(np.linalg.norm(verts, axis=-1).mean()) if len(verts) else 0.0
+        rep["init_mesh"] = {"verts": int(len(verts)), "mean_radius": radius}
+        if not (np.isfinite(info["sdf_loss"]) and S2_RADIUS[0] < radius < S2_RADIUS[1]):
+            raise AssertionError(f"stage-2 mlp_init: sdf loss {info['sdf_loss']}, proxy mesh "
+                                 f"mean radius {radius} not in {S2_RADIUS}")
+
+        before = {k: p.detach().clone() for k, p in trainer.model.named_parameters()}
+        metrics = []
+        timed(s2.Stage2Trainer, "_next_batch", "batch_ms")
+        timed(s2.Stage2Trainer, "update_geometry_aux", "aux_ms")
+        timed(s2.Stage2Trainer, "export_geometry", "export_ms")
+        step_fn = s2.Stage2Trainer.train_step
+
+        def train_step(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step_fn(self, *a, **kw)
+            torch.cuda.synchronize()
+            rep["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+            return m
+        originals[s2.Stage2Trainer, "train_step"] = step_fn
+        s2.Stage2Trainer.train_step = train_step
+        kernels.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        trainer.train(log_fn=lambda *a: None)
+        s2_counts = dict(kernels.COUNTS)
+        restore()
+        rep["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rep["round_s"] = list(trainer.round_seconds)
+        bad = [(i, k) for i, m in enumerate(metrics) for k, v in m.items() if not np.isfinite(v)]
+        missing = S2_TERMS - set(metrics[-1])
+        if bad or missing or len(metrics) != S2_ROUNDS * S2_ITERS:
+            raise AssertionError(f"stage-2 steps: {len(metrics)}, non-finite {bad[:5]}, "
+                                 f"missing terms {sorted(missing)}")
+        moved = [k for k, p in trainer.model.named_parameters()
+                 if not torch.equal(p.detach(), before[k])]
+        if len(moved) < 0.9 * len(before):
+            raise AssertionError(f"stage-2: {len(moved)} of {len(before)} parameters moved")
+        rep["moved"] = f"{len(moved)}/{len(before)}"
+        save_dir = trainer.save_dir
+        geo = os.path.join(save_dir, "001-fg-geo.obj")
+        feats = np.load(os.path.join(save_dir, "001-fg-feat.npy"))
+        norms = np.linalg.norm(feats, axis=-1)
+        rep["export"] = {"obj_bytes": os.path.getsize(geo), "feat": list(feats.shape),
+                         "feat_norm_dev": float(np.abs(norms - 1).max())}
+        if (os.path.getsize(geo) == 0 or feats.shape[-1] != 16
+                or np.abs(norms - 1).max() > 1e-3):
+            raise AssertionError(f"stage-2 export: {rep['export']}")
+        fresh = s2.Stage2Trainer(opts, "cuda")
+        fresh.load_checkpoint(os.path.join(save_dir, "ckpt_latest.pth"), reset_steps=False)
+        same = (all(torch.equal(a, b) for a, b in zip(trainer.model.state_dict().values(),
+                                                     fresh.model.state_dict().values()))
+                and all(torch.equal(getattr(trainer.states["fg"], f),
+                                    getattr(fresh.states["fg"], f)) for f in FieldState._fields)
+                and fresh.optimizer.count == trainer.optimizer.count
+                and all(torch.equal(trainer.optimizer.mu[k], fresh.optimizer.mu[k])
+                        and torch.equal(trainer.optimizer.nu[k], fresh.optimizer.nu[k])
+                        for k in trainer.optimizer.mu)
+                and fresh.current_steps == trainer.current_steps)
+        if not same:
+            raise AssertionError("stage-2 checkpoint: the reloaded trainer differs")
+        step_ms = np.asarray(rep["step_ms"])
+        rep["step_ms_median"] = float(np.median(step_ms))
+        rep["step_ms_p90"] = float(np.percentile(step_ms, 90))
+        rep["batch_ms_median"] = float(np.median(rep["batch_ms"]))
+        rep["samples_per_step"] = (2 * opts["imgs_per_gpu"] * opts["pixels_per_image"]
+                                   * trainer.model.fields["fg"].train_depth_samples)
+        log(f"[stage2] {json.dumps({k: v for k, v in rep.items() if k not in ('step_ms', 'batch_ms')})}")
+        log(f"[stage2 steps] {json.dumps([round(x, 3) for x in rep['step_ms']])}")
+        del trainer, fresh
+        torch.cuda.empty_cache()
+
+        # the eval render at 512^2, chunked
+        t0 = time.perf_counter()
+        out = render_cli.main([f"--flagfile={save_dir}/opts.log", "--load_suffix", "latest",
+                               "--render_res", str(S2_RENDER_RES), "--freeze_id", "0",
+                               "--num_frames", str(S2_RENDER_FRAMES), "--viewpoint", "ref"])
+        torch.cuda.synchronize()
+        rep_r = {"render_s": time.perf_counter() - t0,
+                 "chunks_per_frame": -(-S2_RENDER_RES ** 2 // s2.RENDER_CHUNK),
+                 "cover": [float((m > 0.01).mean()) for m in out["mask"]]}
+        finite = all(np.isfinite(v).all() for v in out.values())
+        if (not finite or out["rgb"].shape != (S2_RENDER_FRAMES, S2_RENDER_RES, S2_RENDER_RES, 3)
+                or min(rep_r["cover"]) <= 0):
+            raise AssertionError(f"stage-2 render: finite {finite}, {rep_r}")
+        log(f"[stage2 render] {json.dumps(rep_r)}")
+        rep.update(rep_r)
+        torch.cuda.empty_cache()
+
+        # the hand-off: the port's Stage 3 from this Stage-2 output
+        s3_metrics = []
+        s3_step = Stage3Trainer.train_step
+
+        def s3_train_step(self, *a, **kw):
+            m = s3_step(self, *a, **kw)
+            s3_metrics.append({k: float(v) for k, v in m.items()})
+            return m
+        originals[Stage3Trainer, "train_step"] = s3_step
+        Stage3Trainer.train_step = s3_train_step
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        train_cli.main(["--seqname", "toy", "--logname", "s3", "--fg_motion", "gs-bob",
+                        "--train_res", str(S2_RES), "--num_rounds", "1", "--iters_per_round",
+                        str(S2_HANDOFF_STEPS), "--imgs_per_gpu", "1", "--pixels_per_image",
+                        "-1", "--learning_rate", "3e-5", "--seed", "0",
+                        "--gs_init_mesh", geo,
+                        "--load_path", os.path.join(save_dir, "ckpt_latest.pth")])
+        torch.cuda.synchronize()
+        handoff = dict(kernels.COUNTS)
+        restore()
+        rep["handoff_s"] = time.perf_counter() - t0
+        bad = [k for m in s3_metrics for k, v in m.items() if not np.isfinite(v)]
+        if (len(s3_metrics) != S2_HANDOFF_STEPS or bad or handoff["tile_forward"] < 1
+                or handoff["tile_backward"] < 1 or handoff["tile_forward_plain"]
+                or handoff["tile_backward_plain"]):
+            raise AssertionError(f"hand-off: {len(s3_metrics)} steps, non-finite {bad}, "
+                                 f"launches {handoff}")
+        log(f"[stage2 handoff] {json.dumps({'s': rep['handoff_s'], 'launches': handoff, 'losses': s3_metrics[-1]})}")
+    finally:
+        restore()
+        os.chdir(cwd)
+    return rep, s2_counts, handoff
+
+
 def main() -> int:
     import torch
 
@@ -1886,6 +2193,12 @@ def main() -> int:
         static_small_vs_cpu(rng)
         torch.cuda.reset_peak_memory_stats()
         static_rep, static_counts, static_cmp = static_path(tmp, rng)
+        torch.cuda.empty_cache()
+
+        # Stage 2: a small float64 step on the card vs the CPU, then the
+        # README recipe at full width, its render and the hand-off to Stage 3
+        stage2_small_vs_cpu(tmp)
+        s2_rep, s2_counts, handoff_counts = stage2_path(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1913,7 +2226,9 @@ def main() -> int:
          "static_launches": static_counts[name],
          "static_max_abs_err": static_cmp[f"{key}_max_abs_err"],
          "static_ms": static_cmp[f"{key}_ms"], "static_plain_ms": static_cmp[f"{key}_plain_ms"],
-         "static_bound_ms": static_cmp["bounds"][name]["bound_ms"]}
+         "static_bound_ms": static_cmp["bounds"][name]["bound_ms"],
+         # Stage 2 runs no tile kernel; its hand-off to Stage 3 does
+         "stage2_launches": s2_counts[name], "handoff_launches": handoff_counts[name]}
         for name, key, replaces in (
             ("tile_forward", "fwd", "vidu4d_tpu/ops/rasterize/pallas_kernel.py:111"),
             ("tile_backward", "bwd", "vidu4d_tpu/ops/rasterize/pallas_backward.py:95"))
@@ -1940,7 +2255,11 @@ def main() -> int:
         f"K1 {static_cmp['fwd_ms']:.3f} ms (plain {static_cmp['fwd_plain_ms']:.3f}, bound "
         f"{static_cmp['bounds']['tile_forward']['bound_ms']:.4f}), K2 "
         f"{static_cmp['bwd_ms']:.3f} ms (plain {static_cmp['bwd_plain_ms']:.3f}, bound "
-        f"{static_cmp['bounds']['tile_backward']['bound_ms']:.4f})")
+        f"{static_cmp['bounds']['tile_backward']['bound_ms']:.4f}); stage 2 "
+        f"({s2_rep['samples_per_step']} samples/step): mlp_init {s2_rep['mlp_init_s']:.1f} s, "
+        f"median step {s2_rep['step_ms_median']:.3f} ms (p90 {s2_rep['step_ms_p90']:.3f}), "
+        f"peak {s2_rep['peak_gib']:.2f} GiB, render {S2_RENDER_RES}^2 x {S2_RENDER_FRAMES} "
+        f"{s2_rep['render_s']:.1f} s, hand-off {s2_rep['handoff_s']:.1f} s")
     log(f"[wall] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
-"""Profile the port's Stage-3 step (or the static 2DGS step) on one CUDA
-GPU with torch.profiler.
+"""Profile the port's Stage-3 step (or the static 2DGS step, or the
+Stage-2 step) on one CUDA GPU with torch.profiler.
 
-    python3 scripts/profile_torch_step.py [--reduced | --static]
+    python3 scripts/profile_torch_step.py [--reduced | --static | --stage2]
 
 Builds the chip_smoke.py workload (200k surfels, 256x256, 2 frames;
 calibrated cloud, one fixed batch) in the default configuration (with
@@ -9,7 +9,11 @@ calibrated cloud, one fixed batch) in the default configuration (with
 profiles a few steps. With --static: chip_smoke.py's static scene (1237 x
 822, `tests/torch_parity.static_scene`), its 100k initial points in 400k
 slots as `gs_static` starts them, `gs_trainer.train_step` at SH 0 on
-camera 0.
+camera 0. With --stage2: chip_smoke.py's Stage-2 workload (the README
+recipe, S2_FLAGS: 256 pairs x 16 pixels x 64 samples, an 8 x 256 field,
+make_fake_db(T=16) at 256^2), `Stage2Trainer.train_step` with its own
+batch reads (the host part of a training step), from the seeded
+parameters with the intrinsics and cameras at their priors.
 Prints the card, the wall time per step, the summed device time per step,
 the device busy share, the top kernels by self device time, and the op
 table.
@@ -59,6 +63,30 @@ def static_step(tmp):
     return step
 
 
+def stage2_step(tmp):
+    """A closure that takes one Stage-2 `train_step` (batch read included)
+    on chip_smoke.py's Stage-2 workload."""
+    import chip_smoke as cs
+    from vidu4d_tpu_torch import config
+    from vidu4d_tpu_torch.engine.trainer import Stage2Trainer
+    from vidu4d_tpu_torch.models.fields.time_mlp import (
+        init_camera_base_params,
+        init_intrinsics_base_params,
+    )
+
+    db = cs.load_test_module("helpers").make_fake_db(tmp, num_vids=1, T=cs.S2_FRAMES,
+                                                     H=cs.S2_RES, W=cs.S2_RES)
+    opts = config.parse_flags(cs.S2_FLAGS)
+    opts.pop("device")
+    trainer = Stage2Trainer({**opts, "dataroot": db, "logroot": tmp}, "cuda")
+    model = trainer.model
+    init_intrinsics_base_params(model.intrinsics, trainer.data_info["intrinsics"],
+                                trainer.frame_info)
+    init_camera_base_params(model.fields["fg"].camera_mlp, trainer.rt_scaled,
+                            trainer.frame_info)
+    return lambda: trainer.train_step()
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -71,16 +99,20 @@ def main() -> int:
                       help="profile --nogs_optim_warp --rgb_loss_only --flow_wt 0")
     mode.add_argument("--static", action="store_true",
                       help="profile the static 2DGS step at 1237 x 822")
+    mode.add_argument("--stage2", action="store_true",
+                      help="profile the Stage-2 step of the README recipe")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_step: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(chip_smoke.gpu_name_and_power())
-    print("configuration: " + ("static" if args.static
+    print("configuration: " + ("static" if args.static else "stage2" if args.stage2
                                else "reduced" if args.reduced else "default"))
     with tempfile.TemporaryDirectory() as tmp:
         if args.static:
             step = static_step(tmp)
+        elif args.stage2:
+            step = stage2_step(tmp)
         else:
             trainer, batch = chip_smoke.build_trainer(tmp, "cuda", chip_smoke.MAIN_SURFELS,
                                                       chip_smoke.MAIN_RES,
@@ -113,6 +145,7 @@ def main() -> int:
     for e in sorted(kernels_, key=lambda e: -getattr(e, self_attr))[:15]:
         print(f"[kernel] {getattr(e, self_attr) / 1e3 / STEPS:9.3f} ms/step "
               f"{e.count // STEPS:5d} launches/step  {e.key[:90]}")
+    print(f"[memory] peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB allocated")
     print(events.table(sort_by=self_attr, row_limit=40))
     return 0
 

@@ -414,5 +414,7 @@ def test_cli_entry_points_end_to_end(run, tmp_path, monkeypatch):
     out = treanimate.main(load + ["--render_res", str(RES), "--motion_path",
                                   os.path.join(exp_dir, "motion.json")])
     assert out["rendered"].shape == (T, RES, RES, 3) and np.isfinite(out["rendered"]).all()
-    with pytest.raises(NotImplementedError, match="Stage 2"):
+    # a fg_motion without "gs" is Stage 2, whose trainer refuses a Stage-3
+    # checkpoint
+    with pytest.raises(ValueError, match="not a Stage-2 checkpoint"):
         trender.main(load + ["--fg_motion", "bob"])

@@ -11,12 +11,11 @@ from tests.helpers import make_fake_db
 from vidu4d_tpu.data import data_utils as jdata
 from vidu4d_tpu_torch.data import data_utils as tdata
 from vidu4d_tpu_torch.data.frame_info import FrameInfo
-from vidu4d_tpu_torch.engine.gs4d_trainer import PairSampler
 
 
 @pytest.mark.parametrize("num_vids,seed", [(1, 0), (2, 5)])
 def test_data_path_matches_jax_package(tmp_path, num_vids, seed):
-    """build_datasets + get_data_info + PairSampler batches (flattened,
+    """build_datasets + get_data_info + PairBatcher batches (flattened,
     with global frame ids) equal the JAX package's data_utils + PairBatcher
     draws (one host)."""
     db = make_fake_db(tmp_path, num_vids=num_vids, T=10, H=16, W=16)
@@ -36,7 +35,7 @@ def test_data_path_matches_jax_package(tmp_path, num_vids, seed):
     assert np.array_equal(ji["apply_pca_fn"](feats), ti["apply_pca_fn"](feats))
 
     ref = jdata.PairBatcher(jds, 2, seed=seed, num_hosts=1, host_id=0)
-    got = PairSampler(tds, 2, seed=seed)
+    got = tdata.PairBatcher(tds, 2, seed=seed)
     for _ in range(4):
         a = jdata.compute_frameid(jdata.flatten_pairs(ref.next_batch()), ji["frame_info"])
         b = tdata.compute_frameid(tdata.flatten_pairs(got.next_batch()), ti["frame_info"])

@@ -133,7 +133,8 @@ def test_mean_knn_sq_dist():
 
 def test_port_imports_no_jax():
     """Every module of the port (the CLI entry points and their config
-    among them, the static 2DGS path's too), and chip_smoke.py, imports
+    among them, the static 2DGS path's and Stage 2's too), and
+    chip_smoke.py, imports
     without jax and without any module of the JAX package (in a fresh
     process)."""
     code = (
@@ -144,7 +145,9 @@ def test_port_imports_no_jax():
         "entry = {'vidu4d_tpu_torch.' + m for m in (\n"
         "    'config', 'train', 'render', 'export', 'reanimate', 'gs_static', 'metrics',\n"
         "    'full_eval', 'engine.gs_trainer', 'data.scene_readers', 'utils.network_gui',\n"
-        "    'ops.lpips', 'preprocess.tsdf', 'models.gaussian.extract')}\n"
+        "    'ops.lpips', 'preprocess.tsdf', 'models.gaussian.extract', 'ops.volume',\n"
+        "    'models.fields.dyn_nerf', 'engine.model', 'engine.trainer', 'engine.losses',\n"
+        "    'engine.optim', 'data.vidloader', 'convert')}\n"
         "assert entry <= set(mods), sorted(entry - set(mods))\n"
         "import chip_smoke\n"
         "assert len(mods) >= 30, mods\n"

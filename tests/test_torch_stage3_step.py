@@ -29,7 +29,8 @@ from tests.helpers import make_fake_db
 from tests.torch_parity import assert_close, assert_close_to_max, n
 from vidu4d_tpu.data import data_utils
 from vidu4d_tpu_torch import convert
-from vidu4d_tpu_torch.engine.gs4d_trainer import PairSampler, Stage3Trainer as TTrainer
+from vidu4d_tpu_torch.data.data_utils import PairBatcher
+from vidu4d_tpu_torch.engine.gs4d_trainer import Stage3Trainer as TTrainer
 from vidu4d_tpu_torch.models.gaussian.optimizer import field_lrs
 
 RES = 32
@@ -121,7 +122,7 @@ def test_pair_sampler_matches_pair_batcher(tmp_path):
             "train_res": 16, "pixels_per_image": -1}
     mk = lambda: data_utils.build_datasets(opts, rng=np.random.default_rng(1))
     ref = data_utils.PairBatcher(mk(), 2, seed=3, num_hosts=1, host_id=0)
-    got = PairSampler(mk(), 2, seed=3)
+    got = PairBatcher(mk(), 2, seed=3)
     for _ in range(3):
         a, b = ref.next_batch(), got.next_batch()
         assert a.keys() == b.keys()

@@ -171,7 +171,7 @@ WARP_LOSS_BODIES = {
     "backward_warp": lambda d, s, xyz, rot, feat, rf, m: (lambda out: _cat(m, [
         out[0][0], out[0][1], out[1]["skin_entropy"], out[1]["delta_skin"]]))(
         d.warp(d.warp_surfels(xyz, rot, s)[0][:, :, None], s["frame_id"], s["inst_id"],
-               samples_dict=s, backward=True, **({"return_qt": True} if m is jnp else {}))),
+               samples_dict=s, backward=True, return_qt=True)),
     "cycle_loss": lambda d, s, xyz, rot, feat, rf, m: (lambda c: _cat(m, [
         c["cyc_dist"], c["xyz_cycled"], c["skin_entropy"], c["delta_skin"]]))(
         d.cycle_loss(d.warp_surfels(xyz, rot, s)[0][:, ::3], xyz[::3], s)),

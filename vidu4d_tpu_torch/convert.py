@@ -4,9 +4,11 @@ port's.
 `load_jax_checkpoint` reads a JAX ``ckpt_*.pth`` without importing JAX:
 its pickles hold classes of the JAX package, of optax and of flax. Other
 inputs are numpy trees, as ``jax.tree.map(np.asarray, x)`` gives them:
-the flax parameter dict of ``GaussianDeformer``, the ``SurfelState`` /
-``GsAdamState`` fields (any object with those attributes, or a dict), and
-the optax state of the warp AdamW. Such
+the flax parameter dict of ``GaussianDeformer`` or of the Stage-2
+``DvrModel`` (whose ``fields_fg`` subtree is the port's ``fields.fg``),
+the ``SurfelState`` / ``GsAdamState`` fields (any object with those
+attributes, or a dict), and the optax state of the warp AdamW or of the
+Stage-2 optimiser. Such
 arrays may share memory with live JAX buffers, so every leaf is copied.
 This module imports neither jax nor the JAX package.
 
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from vidu4d_tpu_torch.models.fields.dyn_nerf import FieldState
 from vidu4d_tpu_torch.models.gaussian.optimizer import GsAdamState
 from vidu4d_tpu_torch.models.gaussian.surfels import SurfelParams, SurfelState
 
@@ -168,21 +171,73 @@ def gs_adam_from_jax(state: Any, device) -> GsAdamState:
                        mu=tree(_field(state, "mu")), nu=tree(_field(state, "nu")))
 
 
-def warp_adamw_from_optax(opt_state: Any, module: nn.Module, device) -> Dict:
-    """The JAX trainer's ``warp_opt_state`` (the optax chain of
-    ``make_stage2_optimizer``, numpy leaves) -> the state of the port's
-    ``WarpAdamW`` over ``module``'s named parameters: {"count", "mu", "nu"}
-    (``WarpAdamW.load_state`` takes it). Moments are renamed and transposed
-    as `flax_to_state_dict` does the parameters."""
-    adam = [s for s in opt_state if hasattr(s, "mu") and hasattr(s, "nu")]
-    if len(adam) != 1:
+def _adam_state(opt_state: Any):
+    """(count, mu, nu) of the one Adam state in an optax chain's state: live
+    optax NamedTuples, or `JaxObject` stand-ins from a checkpoint (whose
+    ``args`` are the NamedTuple's fields)."""
+    found = []
+    for s in opt_state:
+        if hasattr(s, "mu") and hasattr(s, "nu"):
+            found.append((s.count, s.mu, s.nu))
+        elif isinstance(s, JaxObject) and type(s).__name__ == "ScaleByAdamState":
+            found.append(tuple(s.args))
+    if len(found) != 1:
         raise ValueError("expected one Adam state in the optax chain")
+    return found[0]
+
+
+def warp_adamw_from_optax(opt_state: Any, module: nn.Module, device) -> Dict:
+    """An optax state of `make_stage2_optimizer`'s chain (numpy leaves; the
+    Stage-3 ``warp_opt_state`` or a Stage-2 ``opt_state``) -> the state of
+    the port's ``WarpAdamW`` over ``module``'s named parameters: {"count",
+    "mu", "nu"} (``WarpAdamW.load_state`` takes it). Moments are renamed
+    and transposed as `flax_to_state_dict` does the parameters (with the
+    Stage-2 field names of `dvr_state_dict_from_flax`)."""
+    count, mu, nu = _adam_state(opt_state)
     names = {k for k, _ in module.named_parameters()}
-    out = {"count": int(np.asarray(adam[0].count))}
-    for key in ("mu", "nu"):
-        sd = flax_to_state_dict(getattr(adam[0], key))
+    out = {"count": int(np.asarray(count))}
+    for key, tree in (("mu", mu), ("nu", nu)):
+        sd = dvr_state_dict_from_flax(tree)
         if set(sd) != names:
             raise ValueError(f"{key} does not match the module's parameters: "
                              f"{sorted(set(sd) ^ names)}")
         out[key] = {k: v.to(device) for k, v in sd.items()}
+    return out
+
+
+def dvr_state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
+    """`flax_to_state_dict` with the Stage-2 model's field subtrees
+    ``fields_<cate>`` named ``fields.<cate>`` (a tree without them passes
+    unchanged)."""
+    out = {}
+    for k, v in flax_to_state_dict(params).items():
+        head, _, rest = k.partition(".")
+        if head.startswith("fields_"):
+            k = f"fields.{head[len('fields_'):]}.{rest}"
+        out[k] = v
+    return out
+
+
+def dvr_flax_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse of `dvr_state_dict_from_flax`: the Stage-2 model's state
+    dict -> its flax tree ``{"params": {"fields_fg": ..., "intrinsics":
+    ...}}`` of numpy arrays."""
+    renamed = {}
+    for k, v in sd.items():
+        parts = k.split(".")
+        if parts[0] == "fields":
+            k = ".".join([f"fields_{parts[1]}"] + parts[2:])
+        renamed[k] = v
+    return state_dict_to_flax(renamed)
+
+
+def field_states_from_checkpoint(states: Dict, device) -> Dict[str, FieldState]:
+    """A checkpoint's per-category field states (JAX: FieldState, a
+    `JaxObject` whose ``args`` are its fields; the port: dicts of the
+    FieldState fields) -> FieldState tensors on ``device``."""
+    out = {}
+    for cate, st in states.items():
+        vals = st.args if isinstance(st, JaxObject) else [st[f] for f in FieldState._fields]
+        out[cate] = FieldState(*[torch.tensor(np.asarray(v, np.float32), device=device)
+                                 for v in vals])
     return out

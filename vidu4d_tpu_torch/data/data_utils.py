@@ -2,14 +2,13 @@
 (`vidu4d_tpu/data/data_utils.py`, one process).
 
 Sequence config ini -> per-video VidDatasets -> dataset metadata
-(`get_data_info`). The pair batches themselves are drawn by the trainer's
-`PairSampler` (`vidu4d_tpu_torch/engine/gs4d_trainer.py`).
+(`get_data_info`) -> random pair batches (`PairBatcher`).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -17,7 +16,14 @@ from vidu4d_tpu_torch.data.frame_info import FrameInfo
 from vidu4d_tpu_torch.data.vidloader import VidDataset, load_sequence_config
 
 
-def build_datasets(opts: Dict, rng: np.random.Generator) -> List[VidDataset]:
+def build_datasets(opts: Dict, rng: Optional[np.random.Generator] = None
+                   ) -> List[VidDataset]:
+    """One VidDataset per video of the sequence config, sharing ``rng``
+    (default: the JAX package's single-process one, seeded with
+    ``opts["seed"] + 1``; `data_utils.py:33`). Items hold
+    ``opts["pixels_per_image"]`` pixels (default 16; -1 = whole images)."""
+    if rng is None:
+        rng = np.random.default_rng(opts.get("seed", 0) + 1)
     config_path = os.path.join(
         opts.get("dataroot", "database"), "configs", f"{opts['seqname']}.config"
     )
@@ -32,6 +38,7 @@ def build_datasets(opts: Dict, rng: np.random.Generator) -> List[VidDataset]:
             rng=rng,
             data_prefix=prefix,
             feature_type=opts.get("feature_type", "dinov2"),
+            pixels_per_image=opts.get("pixels_per_image", 16),
         )
         for vidid, vid in enumerate(vids)
     ]
@@ -112,6 +119,23 @@ def get_data_info(datasets: List[VidDataset]) -> Dict:
             os.path.join(cam_dir, "mesh-01-centered.obj"),
         ]
     return data_info
+
+
+class PairBatcher:
+    """Random (video, frame) pair batches across videos, one process
+    (`data_utils.py:140`): each call returns a dict of (imgs_per_batch, 2,
+    ...) numpy arrays, the same draws as JAX's for the same seed."""
+
+    def __init__(self, datasets: List[VidDataset], imgs_per_batch: int, seed: int = 0):
+        self.datasets = datasets
+        self.imgs_per_batch = imgs_per_batch
+        self.index = [(vid, t) for vid, ds in enumerate(datasets) for t in range(len(ds))]
+        self.rng = np.random.default_rng(seed)
+
+    def next_batch(self) -> Dict[str, np.ndarray]:
+        picks = self.rng.integers(0, len(self.index), size=self.imgs_per_batch)
+        items = [self.datasets[self.index[p][0]][self.index[p][1]] for p in picks]
+        return {k: np.stack([it[k] for it in items]) for k in items[0]}
 
 
 def flatten_pairs(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:

@@ -24,6 +24,10 @@ class FrameInfo(NamedTuple):
         return len(self.frame_offset) - 1
 
     @property
+    def num_frames_raw(self) -> int:
+        return self.frame_offset_raw[-1]
+
+    @property
     def max_vid_len(self) -> int:
         off = np.asarray(self.frame_offset)
         return int((off[1:] - off[:-1]).max())

@@ -1,5 +1,5 @@
 """Video dataset: mmap'd npy frame data + pair sampling
-(`vidu4d_tpu/data/vidloader.py`, full-image reads only).
+(`vidu4d_tpu/data/vidloader.py`).
 
 Reads the Stage-1 on-disk contract:
 
@@ -15,16 +15,18 @@ Reads the Stage-1 on-disk contract:
         Cameras/.../00.npy, 01-canonical.npy         (T,4,4)
 
 Pairs (frame t, t+delta) with delta sampled from {1} + {2,4,8} gated by
-divisibility (`vidloader.py:179-195`). Every item is a whole image (the
-port trains on full images only), in raster order. The rng draws are the
-JAX package's, so the same seed gives the same pairs.
+divisibility (`vidloader.py:179-195`). An item is a whole image in raster
+order (``pixels_per_image`` -1, Stage 3) or ``pixels_per_image`` pixels
+drawn without replacement (`RangeSampler`, Stage 2), gathered from the
+memory maps. The rng draws are the JAX package's, so the same seed gives
+the same pairs and pixels.
 """
 
 from __future__ import annotations
 
 import configparser
 import os
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -71,7 +73,7 @@ class RangeSampler:
 
 
 class VidDataset:
-    """Frame data and annotations for one video, read as whole images."""
+    """Frame data and annotations for one video."""
 
     def __init__(
         self,
@@ -82,8 +84,10 @@ class VidDataset:
         rng: np.random.Generator,
         data_prefix: str = "crop-256",
         feature_type: str = "dinov2",
+        pixels_per_image: int = -1,
     ):
         self.dataid = dataid
+        self.pixels_per_image = pixels_per_image
         self.ks = ks
         self.raw_size = raw_size
         self.rng = rng
@@ -127,8 +131,8 @@ class VidDataset:
                 if os.path.exists(p):
                     self.flow[key][delta] = np.load(p, mmap_mode="r")
 
-        # the JAX dataset's pixel sampler; built here for its draw from the
-        # shared rng, so that the pair draws that follow stay the same
+        # built (and drawn from the shared rng) even for whole images, as
+        # in JAX, so that the pair draws that follow stay the same
         self.idx_sampler = RangeSampler(
             self.img_size[0] * self.img_size[1], rng=self.rng
         )
@@ -145,40 +149,46 @@ class VidDataset:
         ]
         return int(self.rng.choice(deltas))
 
+    def sample_xy(self) -> Optional[np.ndarray]:
+        """(pixels_per_image, 2) integer (x, y), or None for whole images
+        (`vidloader.py:148`)."""
+        if self.pixels_per_image == -1:
+            return None
+        idx = self.idx_sampler.sample(self.pixels_per_image)
+        return np.stack([idx // self.img_size[0], idx % self.img_size[0]], axis=-1)
+
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         delta = self.sample_delta(index)
-        d0 = self.read_raw(index, delta)
-        d1 = self.read_raw(index + delta, -delta)
+        d0 = self.read_raw(index, delta, self.sample_xy())
+        d1 = self.read_raw(index + delta, -delta, self.sample_xy())
         return {k: np.stack([d0[k], d1[k]]) for k in d0}
 
-    def read_raw(self, idx: int, delta: int) -> Dict[str, np.ndarray]:
-        """Frame ``idx`` and its flow towards ``idx + delta``, every pixel in
-        raster order."""
-        flow = self._read_flow(idx, delta)
-        feat = self.mmap["feature"][idx]
-        rgb = np.asarray(self.mmap["rgb"][idx], np.float32)
-        mask_all = np.asarray(self.mmap["mask"][idx], np.float32)
-        depth = np.asarray(self.mmap["depth"][idx], np.float32)
-
-        x0, y0 = np.meshgrid(range(self.img_size[1]), range(self.img_size[0]))
-        hxy = np.stack([x0, y0, np.ones_like(x0)], -1).reshape(-1, 3)
-        sel = lambda a: a.reshape((-1,) + a.shape[2:])
-        feat_sel = bilinear_interp(
-            np.asarray(feat, np.float32),
-            hxy[:, :2] / self.img_size[0] * feat.shape[0],
-        )
-
-        if rgb.ndim == 2:
+    def read_raw(self, idx: int, delta: int,
+                 rand_xy: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
+        """Frame ``idx`` and its flow towards ``idx + delta``: every pixel in
+        raster order, or the pixels ``rand_xy`` (N, 2) gathered straight from
+        the memory maps (`vidloader.py:159`, its numpy path)."""
+        feat = np.asarray(self.mmap["feature"][idx], np.float32)
+        if rand_xy is None:
+            x0, y0 = np.meshgrid(range(self.img_size[1]), range(self.img_size[0]))
+            hxy = np.stack([x0, y0, np.ones_like(x0)], -1).reshape(-1, 3)
+            sel = lambda a: np.asarray(a, np.float32).reshape((-1,) + a.shape[2:])
+        else:
+            hxy = np.concatenate([rand_xy, np.ones_like(rand_xy[:, :1])], -1)
+            sel = lambda a: np.asarray(a[rand_xy[:, 1], rand_xy[:, 0]], np.float32)
+        feat_sel = bilinear_interp(feat, hxy[:, :2] / self.img_size[0] * feat.shape[0])
+        flow = sel(self._read_flow(idx, delta))
+        rgb = sel(self.mmap["rgb"][idx])
+        if rgb.ndim == 1:
             rgb = np.repeat(rgb[..., None], 3, -1)
-        mask = mask_all[..., :1]
-        vis2d = mask_all[..., 1:2]
+        mask_all = sel(self.mmap["mask"][idx])
         return {
-            "rgb": sel(rgb).astype(np.float32),
-            "mask": sel(mask).astype(np.float32),
-            "vis2d": sel(vis2d).astype(np.float32),
-            "depth": sel(depth[..., None]).astype(np.float32),
-            "flow": sel(flow[..., :2]).astype(np.float32),
-            "flow_uct": sel(flow[..., 2:3]).astype(np.float32),
+            "rgb": rgb,
+            "mask": mask_all[..., :1],
+            "vis2d": mask_all[..., 1:2],
+            "depth": sel(self.mmap["depth"][idx])[..., None],
+            "flow": flow[..., :2],
+            "flow_uct": flow[..., 2:3],
             "feature": feat_sel.astype(np.float32),
             "crop2raw": self.crop2raw[idx],
             "is_detected": np.float32(self.is_detected[idx]),
@@ -188,14 +198,13 @@ class VidDataset:
         }
 
     def _read_flow(self, idx: int, delta: int) -> np.ndarray:
+        """The (H, W, 3) flow map (a memory-map view) towards idx + delta."""
         is_fw = delta > 0
         d = abs(delta)
         table = self.flow["fw" if is_fw else "bw"]
         if d not in table:
             return np.zeros(self.img_size + (3,), np.float32)
-        if is_fw:
-            return np.asarray(table[d][idx // d], np.float32)
-        return np.asarray(table[d][idx // d - 1], np.float32)
+        return table[d][idx // d] if is_fw else table[d][idx // d - 1]
 
 
 def load_sequence_config(config_path: str):

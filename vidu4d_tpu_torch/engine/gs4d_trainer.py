@@ -185,22 +185,6 @@ def uniform_pixel_subsample(n_total: int, n_px: int, train_res: int,
     return lambda x: x.index_select(1, idx)
 
 
-class PairSampler:
-    """Random (video, frame) pair batches: the JAX package's PairBatcher
-    with one host (same draws for the same seed)."""
-
-    def __init__(self, datasets, imgs_per_batch: int, seed: int = 0):
-        self.datasets = datasets
-        self.imgs_per_batch = imgs_per_batch
-        self.index = [(vid, t) for vid, ds in enumerate(datasets) for t in range(len(ds))]
-        self.rng = np.random.default_rng(seed)
-
-    def next_batch(self) -> Dict[str, np.ndarray]:
-        picks = self.rng.integers(0, len(self.index), size=self.imgs_per_batch)
-        items = [self.datasets[self.index[p][0]][self.index[p][1]] for p in picks]
-        return {k: np.stack([it[k] for it in items]) for k in items[0]}
-
-
 class Stage3Trainer:
     """Stage-3 trainer state, its step and its round loop, on ``device``
     (the card by default; the CPU, where the kernels' plain versions run,
@@ -218,6 +202,7 @@ class Stage3Trainer:
         check_supported(opts)
         self.opts = dict(opts)
         opts = self.opts
+        opts.setdefault("pixels_per_image", -1)  # full images (`gs4d_trainer.py:150`)
         self.device = torch.device(device)
         self.save_dir = os.path.join(opts.get("logroot", "logdir"),
                                      f"{opts['seqname']}-{opts['logname']}")
@@ -225,8 +210,7 @@ class Stage3Trainer:
         dump_opts_json(self.save_dir, opts)
         seed = max(opts.get("seed", 0), 0)
         if datasets is None:
-            # the JAX trainer's single-host dataset rng (data_utils.py:38-42)
-            datasets = data_utils.build_datasets(opts, rng=np.random.default_rng(seed + 1))
+            datasets = data_utils.build_datasets(opts)
         self.datasets = datasets
         self.data_info = data_info or data_utils.get_data_info(datasets)
         self.frame_info = self.data_info["frame_info"]
@@ -259,7 +243,7 @@ class Stage3Trainer:
                 torch.as_tensor(cols, device=self.device), cap, sh_degree=sh_degree,
                 generator=gen,
             )
-        self.batcher = PairSampler(datasets, opts.get("imgs_per_gpu", 1), seed=seed)
+        self.batcher = data_utils.PairBatcher(datasets, opts.get("imgs_per_gpu", 1), seed=seed)
         self.gs_lrs = GsLearningRates(
             xyz_init=opts.get("position_lr_init", 5e-5),
             xyz_final=opts.get("position_lr_final", 1.6e-6),

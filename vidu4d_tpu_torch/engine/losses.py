@@ -1,14 +1,33 @@
-"""Loss helpers of the Stage-3 step (`vidu4d_tpu/engine/losses.py`)."""
+"""Loss assembly: reconstruction terms, mask rules and weighting
+(`vidu4d_tpu/engine/losses.py`). The Stage-3 step uses the two helpers;
+Stage 2's `DvrModel.loss` the whole chain."""
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
+
+from vidu4d_tpu_torch.ops.numerics import safe_norm
+
+# masking rule groups (`losses.py:20-25`)
+KEYS_IGNORE_MASKING = ("reg_gauss_mask",)
+KEYS_ALLPIX = ("mask",)
+KEYS_FG = ("feature", "feat_reproj")
+KEYS_TYPE_SPECIFIC = ("rgb", "depth", "flow", "vis", "rgb_ssim")
+KEYS_MASK_NOT_DETECTED = ("mask", "feature", "feat_reproj")
+PX_UNIT_KEYS = ("flow", "feat_reproj")
+
+
+def _per_frame(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """(M,) -> (M, 1, ...) broadcastable against ``like``."""
+    return v.reshape((-1,) + (1,) * (like.dim() - 1))
 
 
 def get_mask_balance_wt(mask, vis2d, is_detected):
     """Balance positive/negative mask pixels (`losses.py:28`)."""
     mask = mask.float()
-    vis2d = vis2d.float() * is_detected.float().reshape((-1,) + (1,) * (mask.dim() - 1))
+    vis2d = vis2d.float() * _per_frame(is_detected.float(), mask)
     pos_px = torch.sum(mask * (vis2d > 0))
     neg_px = torch.sum((1 - mask) * (vis2d > 0))
     total = torch.sum(vis2d)
@@ -19,9 +38,87 @@ def get_mask_balance_wt(mask, vis2d, is_detected):
     return torch.where(usable, balanced, torch.ones_like(balanced))
 
 
+def compute_recon_loss(rendered: Dict, aux_dict: Dict, batch: Dict, config: Dict) -> Dict:
+    """Dense per-pixel reconstruction terms of ``field_type`` "fg", the one
+    `DvrModel` has (`losses.py:45`): balanced mask, feature and its
+    reprojection, rgb, depth, flow, visibility, the gauss-mask
+    consistency."""
+    rendered_fg_mask = rendered["mask"]
+    loss_dict = {}
+    balance = get_mask_balance_wt(batch["mask"], batch["vis2d"], batch["is_detected"])
+    loss_dict["mask"] = ((rendered_fg_mask - batch["mask"].float()) ** 2) * balance
+    fg_aux = aux_dict.get("fg", {})
+    if "feature" in fg_aux and fg_aux["feature"].shape[-1] > 0:
+        loss_dict["feature"] = safe_norm(fg_aux["feature"] - batch["feature"], dim=-1,
+                                         keepdim=True)
+    if "xy_reproj" in fg_aux:
+        loss_dict["feat_reproj"] = safe_norm(fg_aux["xy_reproj"] - batch["hxy"][..., :2],
+                                             dim=-1, keepdim=True)
+    loss_dict["rgb"] = (rendered["rgb"] - batch["rgb"]) ** 2
+    loss_dict["depth"] = safe_norm(rendered["depth"] - batch["depth"], dim=-1, keepdim=True)
+    if "flow" in rendered and "flow" in batch:
+        flow_l = safe_norm(rendered["flow"] - batch["flow"], dim=-1, keepdim=True)
+        loss_dict["flow"] = flow_l * (batch["flow_uct"] > 0).to(flow_l.dtype)
+    vis_terms = [a["vis"] * 0.01 if cate == "bg" else a["vis"]
+                 for cate, a in aux_dict.items() if "vis" in a]
+    if vis_terms:
+        loss_dict["vis"] = sum(vis_terms)
+    if "gauss_mask" in fg_aux:
+        loss_dict["reg_gauss_mask"] = (fg_aux["gauss_mask"] - rendered_fg_mask.detach()) ** 2
+    return loss_dict
+
+
+def mask_losses(loss_dict: Dict, batch: Dict, config: Dict) -> Dict:
+    """Segmentation-mask and detection rules of ``field_type`` "fg"
+    (`losses.py:110`)."""
+    vis2d = batch["vis2d"].float()
+    maskfg = batch["mask"].float()
+    mask = maskfg * vis2d
+    if config.get("no_loss_mask", False):
+        mask, maskfg, vis2d = (torch.ones_like(mask), torch.ones_like(maskfg),
+                               torch.ones_like(vis2d))
+    out = {}
+    for k, v in loss_dict.items():
+        if config.get("maskloss_no_vis2d", False) and "mask" in k:
+            out[k] = v * torch.where(vis2d == 0, 0.1, vis2d)
+        elif k in KEYS_IGNORE_MASKING:
+            out[k] = v
+        elif k in KEYS_ALLPIX:
+            out[k] = v * vis2d
+        elif k in KEYS_FG:
+            out[k] = v * maskfg
+        elif k in KEYS_TYPE_SPECIFIC:
+            out[k] = v * mask
+        else:
+            out[k] = v
+    is_det = batch["is_detected"].float()
+    for k in KEYS_MASK_NOT_DETECTED:
+        if k in out:
+            out[k] = out[k] * _per_frame(is_det, out[k])
+    return out
+
+
 def nonzero_mean(v: torch.Tensor) -> torch.Tensor:
     """Mean over strictly-positive entries; plain mean if none."""
     pos = (v > 0).to(v.dtype)
     cnt = torch.sum(pos)
     return torch.where(cnt > 0, torch.sum(v * pos) / torch.clamp(cnt, min=1.0),
                        torch.mean(v))
+
+
+def apply_loss_weights(loss_dict: Dict, config: Dict, weight_overrides: Dict) -> Dict:
+    """Reduce each dense term by `nonzero_mean`, divide the pixel-unit ones
+    by train_res, scale by the annealed weight, else the configured one
+    (`losses.py:160`)."""
+    out = {}
+    for k, v in loss_dict.items():
+        val = nonzero_mean(v) if v.dim() > 0 else v
+        if k in PX_UNIT_KEYS:
+            val = val / config["train_res"]
+        wt_name = k + "_wt"
+        if wt_name in weight_overrides:
+            val = val * weight_overrides[wt_name]
+        elif wt_name in config:
+            val = val * config[wt_name]
+        out[k] = val
+    return out

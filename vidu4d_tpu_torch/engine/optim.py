@@ -1,4 +1,5 @@
-"""AdamW of the warp / camera / intrinsics MLPs (`vidu4d_tpu/engine/optim.py`).
+"""AdamW of the warp / camera / intrinsics MLPs, and of the whole Stage-2
+model (`vidu4d_tpu/engine/optim.py`).
 
 The JAX package's optax chain, in its order, as plain tensor math:
 
@@ -56,6 +57,22 @@ def onecycle_linear(lr: float, total_steps: int, num_rounds: int):
     return schedule
 
 
+@torch.no_grad()
+def adam_step_(params, grads, mu, nu, count: int, lr: float) -> None:
+    """One step of optax's plain ``adam(lr)`` in place: ``count`` is the
+    step's number from 1, bias corrections rounded in float32 as optax
+    rounds them; a None gradient leaves its parameter and moments as they
+    are (a zero gradient in optax, whose moments stay 0)."""
+    c1 = float(np.float32(1.0) - np.float32(B1) ** count)
+    c2 = float(np.float32(1.0) - np.float32(B2) ** count)
+    for p, g, m, v in zip(params, grads, mu, nu):
+        if g is None:
+            continue
+        m.mul_(B1).add_((1.0 - B1) * g)
+        v.mul_(B2).add_((1.0 - B2) * (g * g))
+        p.sub_(lr * (m / c1) / (torch.sqrt(v / c2) + EPS))
+
+
 class WarpAdamW:
     """AdamW over named parameters with the JAX package's schedule and
     per-parameter multipliers. ``count`` is the number of updates made;
@@ -107,3 +124,12 @@ class WarpAdamW:
             v.mul_(B2).add_((1.0 - B2) * (g * g))
             u = (m / c1) / (torch.sqrt(v / c2) + EPS) + WEIGHT_DECAY * p
             p.add_(u * (self.mult[k] * step_size))
+
+
+def make_stage2_optimizer(model: torch.nn.Module, learning_rate: float, total_steps: int,
+                          num_rounds: int, intrinsics_lr_mult: float = 1.0) -> WarpAdamW:
+    """The Stage-2 optimiser (`optim.py:83`): the same chain as the warp
+    AdamW, over every parameter of the Stage-2 model, by dotted name."""
+    return WarpAdamW(model.named_parameters(), learning_rate=learning_rate,
+                     total_steps=total_steps, num_rounds=num_rounds,
+                     intrinsics_lr_mult=intrinsics_lr_mult)

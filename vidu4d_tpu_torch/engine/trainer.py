@@ -1,0 +1,509 @@
+"""Stage-2 trainer: round-based optimisation of the neural SDF model
+(`vidu4d_tpu/engine/trainer.py`).
+
+Per round: the proxy geometry is refreshed (the SDF on a grid -> marching
+tetrahedra -> aabb and near/far), the canonical mesh and its features are
+exported for Stage 3, then ``iters_per_round`` steps of `train_step` run.
+`mlp_init` first fits the intrinsics and camera MLPs to their priors and
+pretrains the SDF to a sphere.
+
+Checkpoints (``ckpt_NNNN.pth``, ``ckpt_latest.pth``) are pickled dicts of
+numpy arrays: "params" in the JAX package's flax layout, so that the
+port's and the JAX package's Stage 3 read them (``--load_path``), the
+field states, the optimiser state and the options. `load_checkpoint` also
+reads the JAX trainer's checkpoints, without JAX.
+
+Random draws (the sampled regularisers of each step, the SDF pretrain's
+points) come from ``torch.Generator``s seeded as the JAX package seeds its
+keys (the step number; 123 for the pretrain); both functions take the
+draws as an argument too.
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+import pickle
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from vidu4d_tpu_torch import convert
+from vidu4d_tpu_torch.data import data_utils
+from vidu4d_tpu_torch.engine.model import DvrModel
+from vidu4d_tpu_torch.engine.optim import adam_step_, make_stage2_optimizer
+from vidu4d_tpu_torch.engine.schedules import progress_schedule
+from vidu4d_tpu_torch.models.fields.dyn_nerf import FieldState
+from vidu4d_tpu_torch.models.fields.time_mlp import (
+    camera_prior_loss,
+    fit_to_prior,
+    init_camera_base_params,
+    init_intrinsics_base_params,
+    intrinsics_prior_loss,
+)
+from vidu4d_tpu_torch.ops import geometry as geom
+from vidu4d_tpu_torch.ops.marching import extract_mesh_np, sample_mesh_surface, save_obj
+from vidu4d_tpu_torch.ops.numerics import safe_norm, safe_normalize
+from vidu4d_tpu_torch.ops.quaternion import quaternion_translation_to_se3
+from vidu4d_tpu_torch.utils.logging import ScalarLogger, dump_opts_json
+from vidu4d_tpu_torch.utils.profiler import round_trace
+
+# the loss options and their JAX defaults (`trainer.py:152-172`)
+LOSS_DEFAULTS = {
+    "field_type": "fg", "train_res": 256, "no_loss_mask": False,
+    "maskloss_no_vis2d": False, "mask_wt": 0.1, "rgb_wt": 0.1, "depth_wt": 1e-4,
+    "flow_wt": 0.5, "vis_wt": 1e-2, "feature_wt": 1e-2, "feat_reproj_wt": 5e-2,
+    "reg_visibility_wt": 1e-4, "reg_eikonal_wt": 1e-3, "reg_deform_cyc_wt": 0.01,
+    "reg_delta_skin_wt": 5e-3, "reg_skin_entropy_wt": 5e-4, "reg_gauss_skin_wt": 1e-3,
+    "reg_cam_prior_wt": 0.1, "reg_skel_prior_wt": 0.1, "reg_gauss_mask_wt": 0.01,
+    "reg_soft_deform_wt": 100.0, "lambda_normal": 0.05, "lambda_dist": 0.0,
+}
+# points of one SDF-pretrain iteration (`trainer.py:236`)
+N_SDF_INIT = 5000
+# rays per chunk of an eval render
+RENDER_CHUNK = 8192
+
+
+def check_supported(opts: Dict) -> None:
+    """Raise NotImplementedError for every option value whose Stage-2 code
+    path the port does not have yet."""
+    o = opts
+    unsupported = [
+        ((o.get("ngpu", 1) or 1) > 1, "ngpu>1 (multi-GPU)"),
+        (o.get("field_type", "fg") != "fg", f"field_type={o.get('field_type')!r}"),
+        (o.get("fg_motion", "bob") not in ("bob", "rigid"),
+         f"fg_motion={o.get('fg_motion')!r} (the port has 'rigid' and 'bob')"),
+        (not o.get("single_inst", True), "single_inst=False"),
+    ]
+    missing = [what for bad, what in unsupported if bad]
+    if missing:
+        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+
+
+class Stage2Trainer:
+    """Stage-2 trainer state, its step and its round loop, on ``device``
+    (the card by default; the CPU only when asked for with
+    ``device="cpu"``). opts: the JAX trainer's option dict. Parameters are
+    drawn from a ``torch.Generator`` seeded with ``max(opts["seed"], 0)``.
+    The run's directory, ``<logroot>/<seqname>-<logname>``, is created with
+    the options in ``opts.json``."""
+
+    def __init__(self, opts: Dict, device="cuda", datasets=None, data_info=None):
+        check_supported(opts)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Stage2Trainer: CUDA is not available; pass device='cpu' "
+                               "to run on the CPU")
+        self.opts = dict(opts)
+        opts = self.opts
+        self.datasets = datasets if datasets is not None else data_utils.build_datasets(opts)
+        self.data_info = data_info or data_utils.get_data_info(self.datasets)
+        self.frame_info = self.data_info["frame_info"]
+        self.save_dir = os.path.join(opts.get("logroot", "logdir"),
+                                     f"{opts['seqname']}-{opts['logname']}")
+        os.makedirs(self.save_dir, exist_ok=True)
+        dump_opts_json(self.save_dir, opts)
+
+        self.current_steps = 0
+        self.current_round = 0
+        self._rollback_cache = [None, None]
+        self.round_seconds: List[float] = []
+        self.total_steps = opts["num_rounds"] * opts["iters_per_round"]
+        seed = max(opts.get("seed", 0), 0)
+
+        # the fg camera prior (index 1 of the rtmat stack), translations at
+        # the init scale 0.1
+        rtmat = self.data_info.get("rtmat")
+        prior = rtmat[1] if rtmat is not None else np.tile(
+            np.eye(4, dtype=np.float32), (self.frame_info.num_frames_raw, 1, 1))
+        self.rt_scaled = prior.copy()
+        self.rt_scaled[:, :3, 3] *= 0.1
+
+        self.num_inst = 1
+        self.model = DvrModel(
+            self.frame_info, field_type=opts.get("field_type", "fg"),
+            fg_motion=opts.get("fg_motion", "bob"), num_inst=self.num_inst,
+            rtmat_prior=self.rt_scaled, rgb_timefree=opts.get("rgb_timefree", False),
+            rgb_dirfree=opts.get("rgb_dirfree", False),
+            use_wide_near_far=opts.get("use_wide_near_far", False),
+            train_depth_samples=opts.get("train_depth_samples", 64),
+            field_depth=opts.get("field_depth", 8), field_width=opts.get("field_width", 256),
+            device=self.device, generator=torch.Generator(self.device).manual_seed(seed))
+        self.states = {"fg": FieldState.initial(self.frame_info.num_frames_raw,
+                                                device=self.device)}
+        self.batcher = data_utils.PairBatcher(self.datasets, opts.get("imgs_per_gpu", 256),
+                                              seed=seed)
+        # the JAX trainer draws one batch to initialise its parameters
+        # (`trainer.py:179`): drawn here too, so the same seed gives the
+        # same training batches
+        self.batcher.next_batch()
+        self.optimizer = make_stage2_optimizer(
+            self.model, learning_rate=opts.get("learning_rate", 5e-4),
+            total_steps=self.total_steps, num_rounds=opts["num_rounds"],
+            intrinsics_lr_mult=opts.get("intrinsics_lr_mult", 1.0))
+        self._proxy_mesh = None
+
+    # ------------------------------------------------------------------
+
+    def _next_batch(self) -> Dict[str, torch.Tensor]:
+        batch = data_utils.flatten_pairs(self.batcher.next_batch())
+        batch = data_utils.compute_frameid(batch, self.frame_info)
+        return {k: torch.as_tensor(np.asarray(v), device=self.device) for k, v in batch.items()}
+
+    def _loss_config(self) -> Dict:
+        return {k: self.opts.get(k, v) for k, v in LOSS_DEFAULTS.items()}
+
+    # ------------------------------------------------------------------
+    # mlp_init: prior fits + SDF pretrain (`trainer.py:188`)
+    # ------------------------------------------------------------------
+
+    def mlp_init(self, sdf_iters: int = 1000, verbose: bool = True) -> Dict:
+        """Fit the intrinsics MLP (to loss 1) and each field's camera MLP
+        (to 1e-4) to their priors, pretrain the SDF to a sphere, then build
+        the proxy geometry with beta 0. Returns the fits' losses, steps and
+        seconds."""
+        info = {}
+        t0 = time.perf_counter()
+        intr = self.model.intrinsics
+        init_intrinsics_base_params(intr, self.data_info["intrinsics"], self.frame_info)
+        intr_prior = torch.as_tensor(self.data_info["intrinsics"], device=self.device)
+        loss, steps = fit_to_prior(lambda: intrinsics_prior_loss(intr, intr_prior),
+                                   intr.parameters(), termination_loss=1.0)
+        info["intrinsics"] = {"loss": loss, "steps": steps,
+                              "seconds": time.perf_counter() - t0}
+        frame_map = np.asarray(self.frame_info.frame_mapping)
+        prior = torch.as_tensor(self.rt_scaled[frame_map], device=self.device)
+        for cate in self.states:
+            t0 = time.perf_counter()
+            cam = self.model.fields[cate].camera_mlp
+            init_camera_base_params(cam, self.rt_scaled, self.frame_info)
+            loss, steps = fit_to_prior(lambda: camera_prior_loss(cam, prior),
+                                       cam.parameters(), termination_loss=1e-4)
+            info[f"camera_{cate}"] = {"loss": loss, "steps": steps,
+                                      "seconds": time.perf_counter() - t0}
+            if verbose:
+                print(f"[mlp_init] camera[{cate}]: loss={loss:.6f} steps={steps} "
+                      f"({info[f'camera_{cate}']['seconds']:.2f} s)")
+        if verbose:
+            i = info["intrinsics"]
+            print(f"[mlp_init] intrinsics: loss={i['loss']:.6f} steps={i['steps']} "
+                  f"({i['seconds']:.2f} s)")
+        t0 = time.perf_counter()
+        info["sdf_loss"] = self._geometry_init(sdf_iters=sdf_iters, verbose=verbose)
+        info["sdf_seconds"] = time.perf_counter() - t0
+        self.update_geometry_aux(beta=0.0)
+        return info
+
+    def geometry_init_draws(self, sdf_iters: int) -> List[Dict]:
+        """The SDF pretrain's draws: per iteration, and one more for the
+        final loss, {cate: (uniform (N_SDF_INIT, 3), instance ids)}."""
+        gen = torch.Generator(self.device).manual_seed(123)
+        return [{cate: (torch.rand((N_SDF_INIT, 3), generator=gen, device=self.device),
+                        torch.randint(0, self.num_inst, (N_SDF_INIT,), generator=gen,
+                                      device=self.device))
+                 for cate in sorted(self.states)} for _ in range(sdf_iters + 1)]
+
+    def _geometry_init(self, sdf_iters: int = 1000, radius: float = 0.1,
+                       verbose: bool = True, draws: Optional[List[Dict]] = None) -> float:
+        """SDF-to-sphere pretrain (`trainer.py:225`): Adam 1e-3 on the SDF
+        error at points drawn in the 0.25-extended aabb, with a visibility
+        and an eikonal term. ``draws``: `geometry_init_draws`. Returns the
+        loss on the last draw after the last step."""
+        draws = draws if draws is not None else self.geometry_init_draws(sdf_iters)
+
+        def loss_fn(draw):
+            losses = []
+            for cate in sorted(self.states):
+                u, inst_id = draw[cate]
+                aabb = geom.extend_aabb(self.states[cate].aabb, factor=0.25)
+                pts = (aabb[0] + u * (aabb[1] - aabb[0])).requires_grad_(True)
+                sdf_gt = torch.linalg.norm(pts.detach(), dim=-1, keepdim=True) - radius
+                field = self.model.fields[cate]
+                sdf, _ = field.sdf(pts, inst_id=inst_id)
+                vis = field.visibility(pts, inst_id)
+                g = torch.autograd.grad(sdf.sum(), pts, create_graph=True)[0]
+                eik = (safe_norm(g, dim=-1) - 1.0) ** 2
+                losses.append(torch.mean((sdf - sdf_gt) ** 2)
+                              - torch.mean(F.logsigmoid(vis)) * 0.01
+                              + torch.sum(eik) / torch.clamp(torch.sum(eik > 0), min=1.0)
+                              * 1e-5)
+            return sum(losses)
+
+        params = [p for cate in self.states for m in (self.model.fields[cate].basefield,
+                                                      self.model.fields[cate].sdf_head,
+                                                      self.model.fields[cate].vis_field)
+                  for p in m.parameters()]
+        mu = [torch.zeros_like(p) for p in params]
+        nu = [torch.zeros_like(p) for p in params]
+        for i in range(sdf_iters):
+            grads = torch.autograd.grad(loss_fn(draws[i]), params)
+            adam_step_(params, grads, mu, nu, i + 1, 1e-3)
+        final = float(loss_fn(draws[sdf_iters]).detach())
+        if verbose:
+            print(f"[mlp_init] sdf pretrain loss={final:.6f}")
+        return final
+
+    # ------------------------------------------------------------------
+    # proxy geometry (`trainer.py:271`)
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def update_geometry_aux(self, beta: float = 0.9, grid_size: int = 64,
+                            n_proxy: int = 64) -> None:
+        """The SDF on a grid over the 0.5-extended aabb -> marching tets ->
+        the proxy mesh; its bounds and the near/far planes of n_proxy
+        surface points under the current cameras, blended into the field
+        state with weight ``beta`` on the old."""
+        for cate, state in self.states.items():
+            aabb_ext = geom.extend_aabb(state.aabb, factor=0.5)
+            ext = aabb_ext.cpu().numpy()
+            axes = [np.linspace(float(ext[0][i]), float(ext[1][i]), grid_size)
+                    for i in range(3)]
+            grid = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+            pts = torch.as_tensor(grid.astype(np.float32), device=self.device)
+            field = self.model.fields[cate]
+            sdf = field.sdf(pts)[0].reshape(grid_size, grid_size, grid_size)
+            verts, faces = extract_mesh_np(sdf, aabb_ext)
+            if len(verts) < 4:
+                continue
+            self._proxy_mesh = (verts, faces)
+            proxy_pts, _, _ = sample_mesh_surface(verts, faces, n_proxy,
+                                                  rng=np.random.default_rng(0))
+            proxy = torch.as_tensor(np.asarray(proxy_pts, np.float32), device=self.device)
+            new_aabb = torch.as_tensor(np.stack([verts.min(0), verts.max(0)]).astype(
+                np.float32), device=self.device)
+            aabb = state.aabb * beta + new_aabb * (1 - beta)
+            rtmat = quaternion_translation_to_se3(*field.camera_vals())
+            near_far = geom.get_near_far(proxy, rtmat)
+            frame_map = torch.as_tensor(np.asarray(self.frame_info.frame_mapping),
+                                        device=self.device)
+            nf = state.near_far.clone()
+            nf[frame_map] = nf[frame_map] * beta + near_far * (1 - beta)
+            self.states[cate] = FieldState(aabb=aabb, near_far=nf, proxy_pts=proxy)
+
+    def export_proxy_mesh(self, path: str) -> None:
+        if self._proxy_mesh is not None:
+            save_obj(path, *self._proxy_mesh)
+
+    def export_geometry(self, rnd: int) -> None:
+        """``NNN-fg-geo.obj`` (the proxy mesh), ``NNN-fg-geo-colors.npy``
+        (colours at the vertices, seen along the SDF gradient at frame 0) and
+        ``NNN-fg-feat.npy`` (16-dim unit features at the vertices), the
+        mesh Stage 3 starts from (`trainer.py:490`)."""
+        path = os.path.join(self.save_dir, f"{rnd:03d}-fg-geo.obj")
+        self.export_proxy_mesh(path)
+        if self._proxy_mesh is None:
+            return
+        field = self.model.fields[list(self.states)[0]]
+        verts = torch.as_tensor(np.asarray(self._proxy_mesh[0], np.float32),
+                                device=self.device)
+        with torch.enable_grad():
+            pts = verts.clone().requires_grad_(True)
+            g = torch.autograd.grad(field.sdf(pts)[0].sum(), pts)[0]
+        with torch.no_grad():
+            feats = field.features(verts)
+            fid = torch.zeros(verts.shape[0], dtype=torch.int64, device=self.device)
+            rgb, _ = field.query(verts[:, None, None], direction=safe_normalize(g)[:, None, None],
+                                 frame_id=fid, inst_id=fid)
+        np.save(os.path.join(self.save_dir, f"{rnd:03d}-fg-feat.npy"), feats.cpu().numpy())
+        np.save(path.replace(".obj", "-colors.npy"), rgb[:, 0, 0].cpu().numpy())
+
+    # ------------------------------------------------------------------
+    # the step and the round loop (`trainer.py:318-488`)
+    # ------------------------------------------------------------------
+
+    def train_step(self, batch: Optional[Dict[str, torch.Tensor]] = None,
+                   draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """One step: loss, backward, the optimiser's update. ``batch``
+        defaults to the batcher's next one, ``draws`` to the step's
+        (`DvrModel.reg_draws` from a generator seeded with the step
+        number). Returns 0-d tensors: every weighted loss term, "total" and
+        "gnorm" (the gradients' global norm before clipping). Does not
+        advance ``current_steps``."""
+        if batch is None:
+            batch = self._next_batch()
+        if draws is None:
+            draws = self.model.reg_draws(
+                torch.Generator(self.device).manual_seed(self.current_steps))
+        cfg = self._loss_config()
+        weights = progress_schedule(cfg, self.current_steps)
+        self.model.zero_grad(set_to_none=True)
+        loss_dict, _ = self.model.loss(batch, self.states, cfg, weights, draws)
+        total = sum(loss_dict.values())
+        total.backward()
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        self.optimizer.step()
+        return {**{k: v.detach() for k, v in loss_dict.items()}, "total": total.detach(),
+                "gnorm": gnorm}
+
+    def _update_rollback_cache(self) -> None:
+        """Two-deep per-round snapshot queue (`trainer.py:366`)."""
+        opt = self.optimizer
+        snap = ({k: v.detach().clone() for k, v in self.model.state_dict().items()},
+                {"count": opt.count, "mu": copy.deepcopy(opt.mu), "nu": copy.deepcopy(opt.nu)})
+        self._rollback_cache = [self._rollback_cache[1], snap]
+
+    def _maybe_rollback(self, gnorm: float) -> bool:
+        """Restore the model of two rounds ago after a gradient spike
+        (`trainer.py:372`, opt-in with ``rollback_on_grad_spike``)."""
+        thresh = self.opts.get("grad_spike_thresh", 5.0)
+        if gnorm <= thresh or self._rollback_cache[0] is None:
+            return False
+        print(f"large grad: {gnorm:.2f}, resume from cached weights")
+        params, opt_state = self._rollback_cache[0]
+        self.model.load_state_dict(params)
+        self.optimizer.load_state({"count": opt_state["count"],
+                                   "mu": copy.deepcopy(opt_state["mu"]),
+                                   "nu": copy.deepcopy(opt_state["nu"])})
+        return True
+
+    def train_one_round(self, log_fn: Optional[Callable] = None) -> float:
+        """``iters_per_round`` steps. ``iters_per_dispatch`` = k groups them
+        for logging as the JAX trainer's chunks do (the loss of a chunk's
+        last step is logged when the step count crosses a multiple of 100);
+        the steps themselves run one by one. Returns the last total."""
+        rollback = self.opts.get("rollback_on_grad_spike", False)
+        iters = self.opts["iters_per_round"]
+        k = 1 if rollback else int(self.opts.get("iters_per_dispatch", 1) or 1)
+        done, total = 0, 0.0
+        while done < iters:
+            kk = min(k, iters - done)
+            taken = 0
+            while taken < kk:
+                metrics = self.train_step()
+                if rollback and self._maybe_rollback(float(metrics["gnorm"])):
+                    continue
+                self.current_steps += 1
+                taken += 1
+            done += kk
+            total = float(metrics["total"])
+            if log_fn is not None and self.current_steps % 100 < kk:
+                log_fn(self.current_steps, total,
+                       {key: float(v) for key, v in metrics.items()
+                        if key not in ("total", "gnorm")})
+        return total
+
+    def train(self, log_fn: Optional[Callable] = None) -> None:
+        """The rounds from ``current_round`` to ``num_rounds``: proxy
+        geometry, export, the round's steps, the checkpoint every
+        ``save_freq`` rounds and after the last; one ``Round NNN:`` line
+        each (`trainer.py:468`). Each round's wall seconds go to
+        ``round_seconds``."""
+        logger = ScalarLogger(self.save_dir)
+        log_fn = log_fn or logger.log_loss_dict
+        try:
+            for rnd in range(self.current_round, self.opts["num_rounds"]):
+                t0 = time.time()
+                self._update_rollback_cache()
+                self.update_geometry_aux()
+                self.export_geometry(rnd)
+                with round_trace(self.save_dir, rnd, enabled=self.opts.get("profile", False),
+                                 device=self.device):
+                    total = self.train_one_round(log_fn=log_fn)
+                self.current_round = rnd + 1
+                if (rnd + 1) % self.opts.get("save_freq", 10) == 0 or (
+                        rnd + 1 == self.opts["num_rounds"]):
+                    self.save_checkpoint(self.current_round)
+                self.round_seconds.append(time.time() - t0)
+                print(f"Round {rnd:03d}: time={self.round_seconds[-1]:.3f}s loss={total:.4f}")
+        finally:
+            logger.close()
+
+    # ------------------------------------------------------------------
+    # rendering (`trainer.py:516`)
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def render_batch(self, batch: Dict, res: int, no_warp: bool = False,
+                     chunk: int = RENDER_CHUNK) -> Dict[str, np.ndarray]:
+        """Render the frames of a `construct_batch` dict with the eval path
+        (importance sampling, aabb mask), frame by frame in chunks of
+        ``chunk`` rays: (M, res, res, c) numpy arrays, the colour-like ones
+        composited over black by the mask. Rays are independent, so chunks
+        join into the whole frame's render ("vis", normalised by the
+        frame's mean transmittance, is joined by its "vis_norm")."""
+        batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        if "frameid" not in batch:
+            offset = torch.as_tensor(self.frame_info.frame_offset_raw, device=self.device)
+            batch["frameid"] = batch["frameid_sub"] + offset[batch["dataid"].long()]
+        n = batch["frameid"].shape[0]
+        n_rays = batch["hxy"].shape[1]
+        frames = []
+        for i in range(n):
+            one = {k: v[i:i + 1] for k, v in batch.items()}
+            parts = []
+            for s in range(0, n_rays, chunk):
+                part = dict(one, hxy=one["hxy"][:, s:s + chunk])
+                rendered, _ = self.model.render(part, self.states, train=False,
+                                                no_warp=no_warp)
+                parts.append(rendered)
+            norms = torch.stack([p.pop("vis_norm") for p in parts])
+            sizes = torch.tensor([p["mask"].shape[1] for p in parts], device=self.device)
+            out = {k: torch.cat([p[k] for p in parts], dim=1) for k in parts[0]}
+            vis_scale = torch.repeat_interleave(norms, sizes)[None, :, None]
+            out["vis"] = out["vis"] * vis_scale / (torch.sum(norms * sizes) / n_rays)
+            frames.append(out)
+        merged = {}
+        for k in frames[0]:
+            v = torch.cat([f[k] for f in frames], dim=0).cpu().numpy()
+            merged[k] = v.reshape(n, res, res, -1) if v.ndim == 3 else v
+        for k in list(merged):
+            if k != "mask" and "mask" not in k and merged[k].ndim == 4:
+                merged[k] = merged[k] * merged["mask"]
+        return merged
+
+    # ------------------------------------------------------------------
+    # checkpoints (`trainer.py:555`)
+    # ------------------------------------------------------------------
+
+    def save_checkpoint(self, round_count: int) -> None:
+        """``ckpt_NNNN.pth`` and ``ckpt_latest.pth``: "current_steps",
+        "current_round", "params" (the flax tree), "states" ({cate: {aabb,
+        near_far, proxy_pts}}), "opt_state" ({count, mu, nu} by state-dict
+        name), "opts"; dicts of numpy arrays and Python values only."""
+        npy = lambda t: t.detach().cpu().numpy()
+        opt = self.optimizer
+        payload = {
+            "current_steps": self.current_steps,
+            "current_round": round_count,
+            "params": convert.dvr_flax_from_state_dict(self.model.state_dict()),
+            "states": {c: {f: npy(v) for f, v in zip(FieldState._fields, s)}
+                       for c, s in self.states.items()},
+            "opt_state": {"count": opt.count, "mu": {k: npy(v) for k, v in opt.mu.items()},
+                          "nu": {k: npy(v) for k, v in opt.nu.items()}},
+            "opts": {k: v for k, v in self.opts.items() if not callable(v)},
+        }
+        data = pickle.dumps(payload, protocol=pickle.HIGHEST_PROTOCOL)
+        for name in (f"ckpt_{round_count:04d}.pth", "ckpt_latest.pth"):
+            with open(os.path.join(self.save_dir, name), "wb") as f:
+                f.write(data)
+
+    def load_checkpoint(self, path: str, reset_steps: bool = True) -> Dict:
+        """Load a checkpoint of `save_checkpoint` or of the JAX trainer
+        (read by `convert.load_jax_checkpoint`, without JAX): the model's
+        parameters (in place), the field states, the optimiser state; the
+        step and round counters too unless ``reset_steps``. Returns the
+        payload."""
+        payload = convert.load_jax_checkpoint(path)
+        if not isinstance(payload["params"].get("params"), dict):
+            raise ValueError(f"{path} is not a Stage-2 checkpoint (its parameters are not "
+                             "a flax tree)")
+        sd = convert.dvr_state_dict_from_flax(payload["params"])
+        self.model.load_state_dict({k: v.to(self.device) for k, v in sd.items()})
+        self.states = convert.field_states_from_checkpoint(payload["states"], self.device)
+        opt_state = payload.get("opt_state")
+        if isinstance(opt_state, dict):
+            t = lambda tree: {k: torch.tensor(v, device=self.device) for k, v in tree.items()}
+            self.optimizer.load_state({"count": opt_state["count"], "mu": t(opt_state["mu"]),
+                                       "nu": t(opt_state["nu"])})
+        elif opt_state is not None:
+            self.optimizer.load_state(convert.warp_adamw_from_optax(opt_state, self.model,
+                                                                    self.device))
+        if not reset_steps:
+            self.current_steps = payload["current_steps"]
+            self.current_round = payload["current_round"]
+        return payload

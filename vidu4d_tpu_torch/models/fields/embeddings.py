@@ -3,6 +3,8 @@
 from __future__ import annotations
 
 import math
+from typing import Optional
+
 import numpy as np
 import torch
 from torch import nn
@@ -10,10 +12,11 @@ from torch import nn
 from vidu4d_tpu_torch.data.frame_info import FrameInfo
 
 
-def pos_embed(x: torch.Tensor, n_freqs: int) -> torch.Tensor:
+def pos_embed(x: torch.Tensor, n_freqs: int, alpha: Optional[float] = None) -> torch.Tensor:
     """Fourier embedding [x, sin(f0 x), cos(f0 x), sin(f1 x), ...] grouped as
-    (freq, func, channel); -1 disables (0 channels), 0 returns x. (The JAX
-    version's coarse-to-fine annealing window is not on the Stage-3 path.)"""
+    (freq, func, channel); -1 disables (0 channels), 0 returns x. ``alpha``
+    in [0, 1] applies the coarse-to-fine window
+    w_j = 0.5 (1 + cos(pi + pi clip(alpha n - j, 0, 1))) to band j."""
     if n_freqs == -1:
         return x[..., :0]
     if n_freqs == 0:
@@ -21,6 +24,12 @@ def pos_embed(x: torch.Tensor, n_freqs: int) -> torch.Tensor:
     freqs = 2.0 ** torch.arange(n_freqs, dtype=x.dtype, device=x.device)
     xf = x[..., None, None, :] * freqs[:, None, None]  # (..., F, 1, C)
     bands = torch.cat([torch.sin(xf), torch.cos(xf)], dim=-2)  # (..., F, 2, C)
+    if alpha is not None:
+        a = torch.as_tensor(alpha, dtype=x.dtype, device=x.device)
+        j = torch.arange(n_freqs, dtype=x.dtype, device=x.device)
+        window = torch.clamp(a * n_freqs - j, 0.0, 1.0)
+        window = 0.5 * (1.0 + torch.cos(math.pi * window + math.pi))
+        bands = bands * window[:, None, None]
     return torch.cat([x, bands.reshape(x.shape[:-1] + (-1,))], dim=-1)
 
 

@@ -105,7 +105,7 @@ class GaussianDeformer(nn.Module):
         """The warp's per-point rigid transform (q, t) for points (M, N, 3),
         each (M, N, 4/3), and its aux dict of (M, N, 1)."""
         (q, t), aux = self.warp(xyz[:, :, None], samples["frame_id"], samples["inst_id"],
-                                samples_dict=samples, backward=backward)
+                                samples_dict=samples, backward=backward, return_qt=True)
         return (q[:, :, 0], t[:, :, 0]), {k: v[:, :, 0] for k, v in aux.items()}
 
     def _canonicalize(self, xyz_cam: torch.Tensor, samples: Dict):

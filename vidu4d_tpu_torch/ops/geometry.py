@@ -1,5 +1,5 @@
-"""Pinhole projection and intrinsics tuple <-> matrix helpers
-(`vidu4d_tpu/ops/geometry.py`)."""
+"""Pinhole projection, intrinsics tuple <-> matrix helpers, near/far planes
+and aabb helpers (`vidu4d_tpu/ops/geometry.py`)."""
 
 from __future__ import annotations
 
@@ -59,3 +59,56 @@ def pinhole_projection(Kmat: torch.Tensor, xyz_cam: torch.Tensor) -> torch.Tenso
     z_safe = torch.where(z.abs() < 1e-3,
                          torch.where(z < 0, -1e-3, 1e-3).to(z.dtype), z)
     return hxy / z_safe
+
+
+def linspace01(n: int, device=None, dtype=torch.float32) -> torch.Tensor:
+    """``jnp.linspace(0, 1, n)`` as XLA computes it: i times the reciprocal
+    of n - 1 rounded to ``dtype``, the last point exactly 1
+    (``torch.linspace`` and a true division round some points
+    differently)."""
+    if n == 1:
+        return torch.zeros(1, device=device, dtype=dtype)
+    recip = torch.ones((), device=device, dtype=dtype) / (n - 1)
+    z = torch.arange(n - 1, device=device, dtype=dtype) * recip
+    return torch.cat([z, torch.ones(1, device=device, dtype=dtype)])
+
+
+def obj_to_cam(pts: torch.Tensor, rtmat: torch.Tensor) -> torch.Tensor:
+    """(N, 3) or (M, N, 3) points through (M, 4, 4) object-to-camera
+    transforms -> (M, N, 3) (`geometry.py:126`)."""
+    if pts.dim() == 2:
+        pts = pts[None].expand((rtmat.shape[0],) + tuple(pts.shape))
+    return torch.einsum("mij,mnj->mni", rtmat[:, :3, :3], pts) + rtmat[:, None, :3, 3]
+
+
+def get_near_far(pts: torch.Tensor, rtmat: torch.Tensor, tol_fac: float = 1.5) -> torch.Tensor:
+    """(M, 2) near/far planes of proxy points (N, 3) under each camera
+    (M, 4, 4), widened by (tol_fac - 1) of the depth range and clamped at
+    1e-3 (`geometry.py:133`)."""
+    z = obj_to_cam(pts, rtmat)[..., 2]
+    pmin = torch.amin(z, dim=-1)
+    pmax = torch.amax(z, dim=-1)
+    delta = (pmax - pmin) * (tol_fac - 1.0)
+    return torch.clamp(torch.stack([pmin - delta, pmax + delta], dim=-1), min=1e-3)
+
+
+def extend_aabb(aabb: torch.Tensor, factor: float = 0.1) -> torch.Tensor:
+    """(2, 3) bounds grown by ``factor`` of their size on each side."""
+    size = aabb[1] - aabb[0]
+    return torch.stack([aabb[0] - size * factor, aabb[1] + size * factor], dim=0)
+
+
+def check_inside_aabb(xyz: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
+    return torch.all((xyz > aabb[:1]) & (xyz < aabb[1:]), dim=-1)
+
+
+def sample_grid(aabb: torch.Tensor, grid_size: int) -> torch.Tensor:
+    """(grid_size^3, 3) grid spanning the aabb, x-major (`geometry.py:164`)."""
+    step = linspace01(grid_size, device=aabb.device, dtype=aabb.dtype)
+    axes = [aabb[0, i] * (1 - step) + aabb[1, i] * step for i in range(3)]
+    gx, gy, gz = torch.meshgrid(*axes, indexing="ij")
+    return torch.stack([gx, gy, gz], dim=-1).reshape(-1, 3)
+
+
+def points_aabb(pts: torch.Tensor) -> torch.Tensor:
+    return torch.stack([torch.amin(pts, dim=0), torch.amax(pts, dim=0)], dim=0)

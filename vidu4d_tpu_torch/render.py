@@ -7,9 +7,10 @@ Viewpoints: "ref" (the training cameras), "rot_e_d" (d degrees around the
 object at elevation e), "bev_e" (bird's eye at elevation e), "refrot_*"
 (the training camera trajectory swept over the clip), "novel_e_d" (one
 training camera, zoomed out 1.2x, held). Renders go to
-``<logroot>/<seq>-<log>/renderings_NNNN/<viewpoint>/``. Runs on the card
-unless ``--device cpu``; Stage 2 (a ``fg_motion`` without "gs") is not
-ported yet and raises.
+``<logroot>/<seq>-<log>/renderings_NNNN/<viewpoint>/``. A ``fg_motion``
+with "gs" renders the Stage-3 surfels (the forward tile kernel), any other
+the Stage-2 neural SDF (volume rendering in chunks of rays). Runs on the
+card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -33,18 +34,15 @@ from vidu4d_tpu_torch.utils.camera_trajectories import (
 from vidu4d_tpu_torch.utils.io import save_rendered
 
 
-def require_stage3(opts: Dict) -> None:
-    if "gs" not in opts["fg_motion"]:
-        raise NotImplementedError("Stage 2 is not ported yet")
-
-
 def build_trainer(opts: Dict, device="cuda"):
-    """The Stage-3 trainer of ``opts`` with its ``ckpt_<load_suffix>.pth``
-    (default "latest") loaded, step counters included."""
-    from vidu4d_tpu_torch.engine.gs4d_trainer import Stage3Trainer
-
-    require_stage3(opts)
-    trainer = Stage3Trainer(opts, device)
+    """The trainer of ``opts`` (Stage 3 for a "gs" ``fg_motion``, else
+    Stage 2) with its ``ckpt_<load_suffix>.pth`` (default "latest")
+    loaded, step counters included (`render.py:31`)."""
+    if "gs" in opts["fg_motion"]:
+        from vidu4d_tpu_torch.engine.gs4d_trainer import Stage3Trainer as Trainer
+    else:
+        from vidu4d_tpu_torch.engine.trainer import Stage2Trainer as Trainer
+    trainer = Trainer(opts, device)
     suffix = opts.get("load_suffix") or "latest"
     trainer.load_checkpoint(os.path.join(trainer.save_dir, f"ckpt_{suffix}.pth"),
                             reset_steps=False)
@@ -55,23 +53,35 @@ def _frames(trainer, frameid) -> torch.Tensor:
     return torch.as_tensor(np.asarray(frameid), device=trainer.device)
 
 
+def camera_modules(trainer):
+    """(the module holding camera_mlp and logscale, the intrinsics MLP):
+    the Stage-3 deformer, or the Stage-2 model's first field."""
+    if hasattr(trainer, "deformer"):
+        return trainer.deformer, trainer.deformer.intrinsics
+    return trainer.model.fields[list(trainer.states)[0]], trainer.model.intrinsics
+
+
 @torch.no_grad()
 def get_field_cameras(trainer, frameid) -> np.ndarray:
     """(N, 4, 4) field-to-camera matrices in world units at raw frame ids:
     the camera MLP's translation over exp(logscale) (`render.py:47`)."""
-    d = trainer.deformer
-    q, t = d.camera_mlp(_frames(trainer, frameid))
-    return quaternion_translation_to_se3(q, t / torch.exp(d.logscale)).cpu().numpy()
+    owner, _ = camera_modules(trainer)
+    q, t = owner.camera_mlp(_frames(trainer, frameid))
+    return quaternion_translation_to_se3(q, t / torch.exp(owner.logscale)).cpu().numpy()
 
 
 @torch.no_grad()
 def get_intrinsics(trainer, frameid) -> np.ndarray:
     """(N, 4) fx, fy, cx, cy at raw frame ids (`render.py:75`)."""
-    return trainer.deformer.intrinsics(_frames(trainer, frameid)).cpu().numpy()
+    return camera_modules(trainer)[1](_frames(trainer, frameid)).cpu().numpy()
 
 
 def object_size(trainer) -> float:
-    """Largest extent of the alive surfels (`render.py:89`)."""
+    """Largest extent of the alive surfels, or of the Stage-2 field's aabb
+    (`render.py:89`)."""
+    if not hasattr(trainer, "surfels"):
+        aabb = trainer.states[list(trainer.states)[0]].aabb.cpu().numpy()
+        return float((aabb[1] - aabb[0]).max())
     alive = trainer.surfels.alive
     xyz = trainer.surfels.params.xyz.detach()[alive].cpu().numpy()
     return float((xyz.max(0) - xyz.min(0)).max()) if len(xyz) else 1.0

@@ -1,17 +1,19 @@
-"""Training entry point (`vidu4d_tpu/train.py`), Stage 3.
+"""Training entry point (`vidu4d_tpu/train.py`), Stage 2 and Stage 3.
 
+    python -m vidu4d_tpu_torch.train --seqname cheetah --logname s2 --fg_motion bob \\
+        --num_rounds 21 --rgb_timefree --rgb_dirfree [--device cpu]
     python -m vidu4d_tpu_torch.train --seqname cheetah --logname s3 --fg_motion gs-bob \\
         --num_rounds 61 --imgs_per_gpu 1 --pixels_per_image -1 \\
         --load_path logdir/cheetah-s2/ckpt_latest.pth \\
         --gs_init_mesh logdir/cheetah-s2/020-fg-geo.obj [--device cpu]
 
 Writes ``<logroot>/<seqname>-<logname>/opts.log`` (readable by the JAX
-CLIs), starts the surfels on ``--gs_init_mesh``, takes the warp, cameras
-and intrinsics over from the Stage-2 checkpoint ``--load_path`` (a JAX
-file, read without JAX), resumes from ``ckpt_<load_suffix>.pth`` when
-``--load_suffix`` is set, and trains. Runs on the card unless
-``--device cpu``. Stage 2 (a ``fg_motion`` without "gs") is not ported yet
-and raises.
+CLIs). Stage 3 (a "gs" ``fg_motion``) starts the surfels on
+``--gs_init_mesh`` and takes the warp, cameras and intrinsics over from the
+Stage-2 checkpoint ``--load_path`` (the port's or a JAX file, read without
+JAX); Stage 2 runs `mlp_init`. Either resumes from
+``ckpt_<load_suffix>.pth`` when ``--load_suffix`` is set (Stage 2 then
+skips `mlp_init`), and trains. Runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -21,7 +23,6 @@ import sys
 from typing import Optional, Sequence
 
 from vidu4d_tpu_torch import config
-from vidu4d_tpu_torch.render import require_stage3
 
 
 def log_fn(step: int, *rest) -> None:
@@ -37,19 +38,26 @@ def log_fn(step: int, *rest) -> None:
 def main(argv: Optional[Sequence[str]] = None):
     """Parse, save opts.log, build the trainer, load, train. Returns the
     trainer."""
-    from vidu4d_tpu_torch.engine.gs4d_trainer import Stage3Trainer
-
     opts = config.parse_flags(sys.argv[1:] if argv is None else argv)
     device = opts.pop("device")
-    require_stage3(opts)
     config.save_config(opts)
-    trainer = Stage3Trainer(opts, device)
-    if opts["load_path"]:
-        trainer.load_stage2(opts["load_path"])
+    stage3 = "gs" in opts["fg_motion"]
+    if stage3:
+        from vidu4d_tpu_torch.engine.gs4d_trainer import Stage3Trainer
+
+        trainer = Stage3Trainer(opts, device)
+        if opts["load_path"]:
+            trainer.load_stage2(opts["load_path"])
+    else:
+        from vidu4d_tpu_torch.engine.trainer import Stage2Trainer
+
+        trainer = Stage2Trainer(opts, device)
     if opts["load_suffix"]:
         trainer.load_checkpoint(
             os.path.join(trainer.save_dir, f"ckpt_{opts['load_suffix']}.pth"),
             reset_steps=opts["reset_steps"])
+    elif not stage3:
+        trainer.mlp_init()
     trainer.train(log_fn=log_fn)
     return trainer
 
