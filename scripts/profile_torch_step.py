@@ -1,7 +1,7 @@
 """Profile the port's Stage-3 step (or the static 2DGS step, or the
 Stage-2 step) on one CUDA GPU with torch.profiler.
 
-    python3 scripts/profile_torch_step.py [--reduced | --static | --stage2]
+    python3 scripts/profile_torch_step.py [--reduced | --static | --stage2 | --stage2-comp]
 
 Builds the chip_smoke.py workload (200k surfels, 256x256, 2 frames;
 calibrated cloud, one fixed batch) in the default configuration (with
@@ -13,7 +13,9 @@ camera 0. With --stage2: chip_smoke.py's Stage-2 workload (the README
 recipe, S2_FLAGS: 256 pairs x 16 pixels x 64 samples, an 8 x 256 field,
 make_fake_db(T=16) at 256^2), `Stage2Trainer.train_step` with its own
 batch reads (the host part of a training step), from the seeded
-parameters with the intrinsics and cameras at their priors.
+parameters with the intrinsics and cameras at their priors. With
+--stage2-comp: the same for chip_smoke.py's [stage2-comp-skel] workload
+(S2C_FLAGS: --field_type comp --fg_motion skel-quad, two fields).
 Prints the card, the wall time per step, the summed device time per step,
 the device busy share, the top kernels by self device time, and the op
 table.
@@ -63,9 +65,9 @@ def static_step(tmp):
     return step
 
 
-def stage2_step(tmp):
+def stage2_step(tmp, flags):
     """A closure that takes one Stage-2 `train_step` (batch read included)
-    on chip_smoke.py's Stage-2 workload."""
+    on chip_smoke.py's Stage-2 workload of ``flags``."""
     import chip_smoke as cs
     from vidu4d_tpu_torch import config
     from vidu4d_tpu_torch.engine.trainer import Stage2Trainer
@@ -76,14 +78,14 @@ def stage2_step(tmp):
 
     db = cs.load_test_module("helpers").make_fake_db(tmp, num_vids=1, T=cs.S2_FRAMES,
                                                      H=cs.S2_RES, W=cs.S2_RES)
-    opts = config.parse_flags(cs.S2_FLAGS)
+    opts = config.parse_flags(flags)
     opts.pop("device")
     trainer = Stage2Trainer({**opts, "dataroot": db, "logroot": tmp}, "cuda")
     model = trainer.model
     init_intrinsics_base_params(model.intrinsics, trainer.data_info["intrinsics"],
                                 trainer.frame_info)
-    init_camera_base_params(model.fields["fg"].camera_mlp, trainer.rt_scaled,
-                            trainer.frame_info)
+    for field in model.fields.values():
+        init_camera_base_params(field.camera_mlp, trainer.rt_scaled, trainer.frame_info)
     return lambda: trainer.train_step()
 
 
@@ -101,18 +103,22 @@ def main() -> int:
                       help="profile the static 2DGS step at 1237 x 822")
     mode.add_argument("--stage2", action="store_true",
                       help="profile the Stage-2 step of the README recipe")
+    mode.add_argument("--stage2-comp", action="store_true",
+                      help="profile the comp + skel-quad Stage-2 step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_step: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(chip_smoke.gpu_name_and_power())
     print("configuration: " + ("static" if args.static else "stage2" if args.stage2
+                               else "stage2-comp" if args.stage2_comp
                                else "reduced" if args.reduced else "default"))
     with tempfile.TemporaryDirectory() as tmp:
         if args.static:
             step = static_step(tmp)
-        elif args.stage2:
-            step = stage2_step(tmp)
+        elif args.stage2 or args.stage2_comp:
+            step = stage2_step(tmp, chip_smoke.S2C_FLAGS if args.stage2_comp
+                               else chip_smoke.S2_FLAGS)
         else:
             trainer, batch = chip_smoke.build_trainer(tmp, "cuda", chip_smoke.MAIN_SURFELS,
                                                       chip_smoke.MAIN_RES,

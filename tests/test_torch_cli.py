@@ -264,9 +264,15 @@ def test_get_samples_t_articulation_override_matches_jax(run):
     with torch.no_grad():
         tc = d.warp_surfels(torch.as_tensor(xyz), torch.as_tensor(rot), ts)[0]
     assert_close(jc, tc, 1e-5, 1e-5, "xyz_cam")
-    with pytest.raises(NotImplementedError):
-        d.get_samples({k: torch.as_tensor(v) for k, v in batch.items()} | {
-            "joint_so3": torch.zeros(m, 25, 3)})
+    # a bag of bones has no joints: a batch "joint_so3" is ignored, as in JAX
+    with_joints = batch | {"joint_so3": rng.normal(size=(m, 25, 3)).astype(np.float32)}
+    js2 = jt.deformer.apply(jt.params, with_joints, method=jt.deformer.get_samples)
+    with torch.no_grad():
+        ts2 = d.get_samples({k: torch.as_tensor(v) for k, v in with_joints.items()})
+    for k in ("t_articulation", "rest_articulation"):
+        for i in range(2):
+            assert torch.equal(ts2[k][i], ts[k][i]), k
+            assert_close(js2[k][i], ts2[k][i], 1e-6, 1e-6, f"joint_so3 {k}[{i}]")
 
 
 @pytest.fixture(scope="module")

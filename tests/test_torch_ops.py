@@ -133,8 +133,8 @@ def test_mean_knn_sq_dist():
 
 def test_port_imports_no_jax():
     """Every module of the port (the CLI entry points and their config
-    among them, the static 2DGS path's and Stage 2's too), and
-    chip_smoke.py, imports
+    among them, the static 2DGS path's and Stage 2's too, the skeleton
+    and the NVP warp), and chip_smoke.py, imports
     without jax and without any module of the JAX package (in a fresh
     process)."""
     code = (
@@ -147,7 +147,8 @@ def test_port_imports_no_jax():
         "    'full_eval', 'engine.gs_trainer', 'data.scene_readers', 'utils.network_gui',\n"
         "    'ops.lpips', 'preprocess.tsdf', 'models.gaussian.extract', 'ops.volume',\n"
         "    'models.fields.dyn_nerf', 'engine.model', 'engine.trainer', 'engine.losses',\n"
-        "    'engine.optim', 'data.vidloader', 'convert')}\n"
+        "    'engine.optim', 'data.vidloader', 'convert', 'models.fields.skeleton',\n"
+        "    'models.fields.nvp')}\n"
         "assert entry <= set(mods), sorted(entry - set(mods))\n"
         "import chip_smoke\n"
         "assert len(mods) >= 30, mods\n"

@@ -290,3 +290,21 @@ def rot_to_qvec(rot: np.ndarray) -> np.ndarray:
             qq[:, 1 + k] = (r[:, k, i] + r[:, i, k]) / d
             q[s] = qq
     return (q * np.where(q[:, :1] < 0, -1.0, 1.0)).reshape(lead + (4,))
+
+
+def jax_time_code_in_default_float(monkeypatch):
+    """Make the JAX package's TimeEmbedding compute the frame time in the
+    default float type (float64 under ``jax.enable_x64``, else float32, as
+    before): it casts to float32 (`embeddings.py:117`), which puts float32
+    rounding into every time-conditioned output of a float64 comparison."""
+    import jax.numpy as jnp
+
+    from vidu4d_tpu.models.fields.embeddings import TimeEmbedding
+
+    def frame_to_tid(self, frame_id):
+        frame_id = frame_id.astype(jnp.int32)
+        vid_len = self._raw_fid_to_vidlen[frame_id]
+        tid_sub = frame_id.astype(jnp.result_type(float)) - self._raw_fid_to_vstart[frame_id]
+        return (tid_sub - vid_len / 2.0) / self._max_ts * 2.0 * self.time_scale
+
+    monkeypatch.setattr(TimeEmbedding, "frame_to_tid", frame_to_tid)

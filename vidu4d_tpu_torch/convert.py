@@ -5,7 +5,8 @@ port's.
 its pickles hold classes of the JAX package, of optax and of flax. Other
 inputs are numpy trees, as ``jax.tree.map(np.asarray, x)`` gives them:
 the flax parameter dict of ``GaussianDeformer`` or of the Stage-2
-``DvrModel`` (whose ``fields_fg`` subtree is the port's ``fields.fg``),
+``DvrModel`` (whose ``fields_fg`` / ``fields_bg`` subtrees are the port's
+``fields.fg`` / ``fields.bg``),
 the ``SurfelState`` / ``GsAdamState`` fields (any object with those
 attributes, or a dict), and the optax state of the warp AdamW or of the
 Stage-2 optimiser. Such
@@ -15,7 +16,10 @@ This module imports neither jax nor the JAX package.
 Flax ``Dense`` kernels are (in, out); ``nn.Linear`` weights are (out, in),
 so kernels are transposed. Flax names the two layers of a compact ``Head``
 ``Dense_0`` (the output layer, created first) and ``Dense_1`` (the hidden
-layer); the port names them ``out`` and ``hidden``.
+layer); the port names them ``out`` and ``hidden``. The rename applies to
+a ``Head`` only, a node whose children are exactly ``Dense_0`` and
+``Dense_1``: the compact NVP coupling's ``Dense_0`` .. ``Dense_2`` are its
+hidden, hidden and output layers in that order, and keep their names.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from vidu4d_tpu_torch.models.fields.dyn_nerf import FieldState
 from vidu4d_tpu_torch.models.gaussian.optimizer import GsAdamState
 from vidu4d_tpu_torch.models.gaussian.surfels import SurfelParams, SurfelState
 
+# a flax Head's layers -> the port's names
 _RENAME = {"Dense_0": "out", "Dense_1": "hidden"}
 _RENAME_BACK = {v: k for k, v in _RENAME.items()}
 
@@ -104,8 +109,9 @@ def flax_to_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
 
     def walk(node, path):
         if isinstance(node, dict):
+            head = set(node) == set(_RENAME)
             for k, v in node.items():
-                walk(v, path + [_RENAME.get(k, k)])
+                walk(v, path + [_RENAME[k] if head else k])
             return
         arr = np.asarray(node, dtype=np.float32)
         if path[-1] == "kernel":

@@ -2,7 +2,8 @@
 (`vidu4d_tpu/engine/gs4d_trainer.py`).
 
 One step (`train_step`) of the JAX trainer's default configuration
-(``--fg_motion gs-bob``, the JAX defaults of every loss option):
+(``--fg_motion gs-bob``, the JAX defaults of every loss option; the other
+motions with an SE(3) form run the same step, see `check_supported`):
 
   camera/intrinsics MLPs + articulation -> DQ-skinning warp of all P
   surfels -> per-surfel pair flow through the pair-flipped frames (2 extra
@@ -73,10 +74,24 @@ from vidu4d_tpu_torch.utils.logging import ScalarLogger, dump_opts_json
 from vidu4d_tpu_torch.utils.profiler import round_trace
 
 
+# the warps without an SE(3) form, which Stage 3 cannot drive surfels with:
+# the JAX trainer raises their NotImplementedError when it is built
+NO_SE3_FORM = {"dense": "DenseWarp", "nvp": "NVPWarp", "comp": "ComposedWarp"}
+
+
 def check_supported(opts: Dict) -> None:
-    """Raise NotImplementedError for every option value whose code path the
-    port does not have yet."""
+    """Raise NotImplementedError for a motion the JAX trainer rejects too
+    (gs-dense, gs-nvp, gs-comp*: their warps have no SE(3) form, with the
+    JAX package's message) and for every option value whose code path the
+    port does not have yet. Stage 3 takes gs-bob, gs-bob-nosoft,
+    gs-bob-sc, gs-skel-human, gs-skel-quad, gs-denseSE3 and gs-rigid."""
     o = opts
+    motion = o.get("fg_motion", "gs-bob")
+    if not motion.startswith("gs-"):
+        raise ValueError(f"fg_motion {motion!r} is not a Stage-3 motion (gs-*)")
+    warp = NO_SE3_FORM.get("comp" if motion[3:].startswith("comp") else motion[3:])
+    if warp is not None:
+        raise NotImplementedError(f"{warp} has no SE(3) form")
     unsupported = [
         ((o.get("ngpu", 1) or 1) > 1, "ngpu>1 (multi-GPU)"),
         (o.get("raster_impl") not in (None, "", "pallas_grad"),
@@ -85,8 +100,6 @@ def check_supported(opts: Dict) -> None:
         (o.get("pixels_per_image", -1) != -1, "pixels_per_image != -1"),
         (bool(o.get("gs_init_ply")), "gs_init_ply (the JAX trainer ignores it)"),
         (not o.get("single_inst", True), "single_inst=False"),
-        (o.get("fg_motion", "gs-bob") != "gs-bob",
-         f"fg_motion={o.get('fg_motion')!r} (the port has gs-bob only)"),
     ]
     missing = [what for bad, what in unsupported if bad]
     if missing:
@@ -436,9 +449,12 @@ class Stage3Trainer:
             sub_c = max(int(cfg["cycle_subsample"] or 1), 1)
             cyc = d.cycle_loss(xyz_cam[:, ::sub_c], sp.xyz[::sub_c], samples)
             loss_dict["reg_deform_cyc"] = losses_mod.nonzero_mean(cyc["cyc_dist"])
+            # a warp without bones returns neither skin term
+            # (`gs4d_trainer.py:564-567`)
             if "delta_skin" in cyc:
                 loss_dict["reg_delta_skin"] = losses_mod.nonzero_mean(cyc["delta_skin"])
-            loss_dict["reg_skin_entropy"] = losses_mod.nonzero_mean(cyc["skin_entropy"])
+            if "skin_entropy" in cyc:
+                loss_dict["reg_skin_entropy"] = losses_mod.nonzero_mean(cyc["skin_entropy"])
 
             # 2DGS normal / distortion regularisers
             if use_2dgs_reg and cfg["lambda_normal"] > 0:
@@ -455,7 +471,7 @@ class Stage3Trainer:
                     torch.prod(sf.get_scaling(sp), dim=1) * self.surfels.alive)
 
             # ARAP rigidity of the bone centers between the pair frames
-            if cfg["arap_wt"] > 0:
+            if cfg["arap_wt"] > 0 and "t_articulation" in samples:
                 _, bones = dual_quaternion_to_quaternion_translation(
                     samples["t_articulation"])
                 loss_dict["arap"] = cfg["arap_wt"] * arap_bone_loss(

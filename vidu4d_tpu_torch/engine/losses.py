@@ -39,14 +39,23 @@ def get_mask_balance_wt(mask, vis2d, is_detected):
 
 
 def compute_recon_loss(rendered: Dict, aux_dict: Dict, batch: Dict, config: Dict) -> Dict:
-    """Dense per-pixel reconstruction terms of ``field_type`` "fg", the one
-    `DvrModel` has (`losses.py:45`): balanced mask, feature and its
-    reprojection, rgb, depth, flow, visibility, the gauss-mask
-    consistency."""
-    rendered_fg_mask = rendered["mask"]
+    """Dense per-pixel reconstruction terms (`losses.py:45`), by
+    ``config["field_type"]``: the balanced mask against the rendered mask
+    ("fg"), the background's mask against 1 ("bg"), or both, the fg mask
+    being the fg field's share "mask_fg" ("comp"); then the fg field's
+    feature and its reprojection (fg, comp), rgb, depth, flow, visibility
+    (the bg field's at 0.01) and the gauss-mask consistency."""
+    field_type = config["field_type"]
+    rendered_fg_mask = rendered["mask_fg"] if field_type == "comp" else rendered["mask"]
     loss_dict = {}
     balance = get_mask_balance_wt(batch["mask"], batch["vis2d"], batch["is_detected"])
-    loss_dict["mask"] = ((rendered_fg_mask - batch["mask"].float()) ** 2) * balance
+    gt_mask = batch["mask"].float()
+    if field_type == "bg":
+        loss_dict["mask"] = (rendered["mask"] - 1.0) ** 2
+    else:
+        loss_dict["mask"] = ((rendered_fg_mask - gt_mask) ** 2) * balance
+        if field_type == "comp":
+            loss_dict["mask"] = loss_dict["mask"] + (rendered["mask"] - 1.0) ** 2
     fg_aux = aux_dict.get("fg", {})
     if "feature" in fg_aux and fg_aux["feature"].shape[-1] > 0:
         loss_dict["feature"] = safe_norm(fg_aux["feature"] - batch["feature"], dim=-1,
@@ -69,11 +78,13 @@ def compute_recon_loss(rendered: Dict, aux_dict: Dict, batch: Dict, config: Dict
 
 
 def mask_losses(loss_dict: Dict, batch: Dict, config: Dict) -> Dict:
-    """Segmentation-mask and detection rules of ``field_type`` "fg"
-    (`losses.py:110`)."""
+    """Segmentation-mask and detection rules (`losses.py:112`): the
+    type-specific terms count on fg pixels ("fg"), bg pixels ("bg") or
+    every visible pixel ("comp")."""
     vis2d = batch["vis2d"].float()
     maskfg = batch["mask"].float()
-    mask = maskfg * vis2d
+    mask = {"fg": maskfg * vis2d, "bg": (1 - maskfg) * vis2d, "comp": vis2d}[
+        config["field_type"]]
     if config.get("no_loss_mask", False):
         mask, maskfg, vis2d = (torch.ones_like(mask), torch.ones_like(maskfg),
                                torch.ones_like(vis2d))

@@ -1,10 +1,12 @@
 """The Stage-2 model: neural fields + intrinsics + loss assembly
 (`vidu4d_tpu/engine/model.py`).
 
-`DvrModel` owns the per-category `DynNeRF` fields (``fields.fg``; flax
-names the subtree ``fields_fg``) and the `IntrinsicsMLP`; `loss` renders
-the batch, assembles every reconstruction and regularisation term and
-weights them. Only ``field_type`` "fg" is ported.
+`DvrModel` owns the per-category `DynNeRF` fields and the `IntrinsicsMLP`:
+``field_type`` "fg" has the deformable object field (``fields.fg``; flax
+names the subtree ``fields_fg``), "bg" the rigid background field
+(``fields.bg``), "comp" both, composited along each ray by depth. `loss`
+renders the batch, assembles every reconstruction and regularisation term
+and weights them.
 
 The sampled regularisers draw points in the aabb (`reg_draws`). The draws
 are an argument of `loss`, so that a caller can hold the port against the
@@ -24,14 +26,17 @@ from vidu4d_tpu_torch.data.frame_info import FrameInfo
 from vidu4d_tpu_torch.engine import losses as losses_mod
 from vidu4d_tpu_torch.models.fields.dyn_nerf import DynNeRF, FieldState
 from vidu4d_tpu_torch.models.fields.mlp import flax_default_init_
+from vidu4d_tpu_torch.models.fields.skeleton import ArticulationSkelMLP
 from vidu4d_tpu_torch.models.fields.time_mlp import IntrinsicsMLP
-from vidu4d_tpu_torch.models.fields.warping import SkinningWarp
+from vidu4d_tpu_torch.models.fields.warping import ComposedWarp, SkinningWarp
 from vidu4d_tpu_torch.ops import geometry as geom
 from vidu4d_tpu_torch.ops.quaternion import quaternion_translation_to_se3
 from vidu4d_tpu_torch.ops.volume import render_pixel
 
-# points of the sampled regularisers (`model.py:169-195`)
-N_VIS, N_GAUSS = 512, 2048
+# points of the sampled regularisers (`model.py:169-201`)
+N_VIS, N_GAUSS, N_SOFT = 512, 2048, 1024
+# the categories of each field_type, in the JAX model's order
+FIELD_CATEGORIES = {"fg": ("fg",), "bg": ("bg",), "comp": ("fg", "bg")}
 
 
 class DvrModel(nn.Module):
@@ -44,16 +49,18 @@ class DvrModel(nn.Module):
                  field_depth: int = 8, field_width: int = 256, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if field_type != "fg":
-            raise NotImplementedError(f"field_type {field_type!r} is not ported yet")
+        if field_type not in FIELD_CATEGORIES:
+            raise ValueError(f"field_type {field_type!r}")
         self.frame_info = frame_info
         self.num_inst = num_inst
         self.use_wide_near_far = use_wide_near_far
-        self.fields = nn.ModuleDict({"fg": DynNeRF(
-            frame_info, category="fg", fg_motion=fg_motion, num_inst=num_inst,
-            depth=field_depth, width=field_width, rgb_timefree=rgb_timefree,
-            rgb_dirfree=rgb_dirfree, train_depth_samples=train_depth_samples,
-            device=device)})
+        # the background field is rigid (`model.py:60-72`)
+        self.fields = nn.ModuleDict({cate: DynNeRF(
+            frame_info, category=cate, fg_motion=fg_motion if cate == "fg" else "rigid",
+            num_inst=num_inst, depth=field_depth, width=field_width,
+            rgb_timefree=rgb_timefree, rgb_dirfree=rgb_dirfree,
+            train_depth_samples=train_depth_samples, device=device)
+            for cate in FIELD_CATEGORIES[field_type]})
         self.intrinsics = IntrinsicsMLP(frame_info, device=device)
         # (N, 4, 4) camera priors, translations at the init scale
         self.register_buffer(
@@ -95,11 +102,24 @@ class DvrModel(nn.Module):
 
     @staticmethod
     def compose_fields(multifields: Dict, deltas_dict: Dict):
-        """Join the fields' samples along each ray (`model.py:145`). Only the
-        fg field is ported, so this is its own samples; the depth sort of
-        several fields comes with ``field_type`` bg / comp."""
-        (cate,) = multifields
-        return multifields[cate], deltas_dict[cate]
+        """Join the fields' samples along each ray (`model.py:132`): every
+        key of any field, zeros where a field lacks it, concatenated over
+        the sample axis in category order; with several fields, sorted by
+        depth (a stable sort: samples of equal depth keep that order)."""
+        cates = list(multifields)
+        keys = sorted({k for f in multifields.values() for k in f})
+        field_dict = {}
+        for k in keys:
+            template = next(f[k] for f in multifields.values() if k in f)
+            field_dict[k] = torch.cat([multifields[c].get(k, torch.zeros_like(template))
+                                       for c in cates], dim=2)
+        deltas = torch.cat([deltas_dict[c] for c in cates], dim=2)
+        if len(cates) > 1:
+            z_idx = torch.argsort(field_dict["depth"], dim=2, stable=True)[..., :1]
+            for k, v in field_dict.items():
+                field_dict[k] = torch.gather(v, 2, z_idx.expand(v.shape))
+            deltas = torch.gather(deltas, 2, z_idx.expand(deltas.shape))
+        return field_dict, deltas
 
     # ------------------------------------------------------------------
     # sampled regularisers (`model.py:164`)
@@ -107,20 +127,29 @@ class DvrModel(nn.Module):
 
     def reg_draws(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         """The random inputs of `reg_losses`: uniform (N_VIS, 3) and
-        (N_GAUSS, 3) positions in [0, 1)^3 and N_VIS instance ids."""
+        (N_GAUSS, 3) positions in [0, 1)^3 and N_VIS instance ids; with a
+        composed fg warp also (N_SOFT, 3) positions and N_SOFT raw frame
+        ids (the JAX model draws both of these from one key)."""
         dev = self.frame_mapping.device
-        return {
+        draws = {
             "vis": torch.rand((N_VIS, 3), generator=generator, device=dev),
             "inst": torch.randint(0, max(self.num_inst, 1), (N_VIS,), generator=generator,
                                   device=dev),
             "gauss": torch.rand((N_GAUSS, 3), generator=generator, device=dev),
         }
+        if "fg" in self.fields and isinstance(self.fields["fg"].warp, ComposedWarp):
+            draws["soft"] = torch.rand((N_SOFT, 3), generator=generator, device=dev)
+            draws["soft_fid"] = torch.randint(0, self.frame_info.num_frames_raw, (N_SOFT,),
+                                              generator=generator, device=dev)
+        return draws
 
     def reg_losses(self, states: Dict[str, FieldState], draws: Dict[str, torch.Tensor],
                    alpha=None) -> Dict[str, torch.Tensor]:
-        """Visibility decay, gauss-skin consistency and the camera prior
-        (`model.py:164`); the uniform draws are mapped into each field's
-        extended aabb."""
+        """Visibility decay (every field), gauss-skin consistency (a
+        skinning fg warp), soft deform (a composed fg warp), the skeleton
+        prior (a skeleton fg warp) and the camera prior averaged over the
+        fields (`model.py:164`); the uniform draws are mapped into each
+        field's extended aabb."""
         def in_aabb(u, state, factor):
             aabb = geom.extend_aabb(state.aabb, factor=factor)
             return aabb[0] + u * (aabb[1] - aabb[0])
@@ -132,8 +161,9 @@ class DvrModel(nn.Module):
             vis_losses.append(-torch.mean(F.logsigmoid(-vis)))
         out["reg_visibility"] = sum(vis_losses) / len(vis_losses)
 
-        field = self.fields["fg"]
-        if isinstance(field.warp, SkinningWarp):
+        field = self.fields["fg"] if "fg" in self.fields else None
+        warp = getattr(field, "warp", None)
+        if isinstance(warp, SkinningWarp):
             pts = in_aabb(draws["gauss"], states["fg"], 0.25)
             density_gauss, density = field.gauss_skin_consistency_density(pts, alpha=alpha)
             # balanced BCE (`model.py:185-193`)
@@ -143,6 +173,14 @@ class DvrModel(nn.Module):
             dg = torch.clamp(density_gauss, 1e-7, 1 - 1e-7)
             bce = -(density * torch.log(dg) + (1 - density) * torch.log(1 - dg))
             out["reg_gauss_skin"] = torch.mean(bce * weight)
+        if isinstance(warp, ComposedWarp):
+            pts = in_aabb(draws["soft"], states["fg"], 1.0)
+            iid = torch.zeros_like(draws["soft_fid"])
+            out["reg_soft_deform"] = torch.mean(
+                warp.compute_post_warp_dist2(pts[:, None, None], draws["soft_fid"], iid))
+        if isinstance(warp, SkinningWarp) and isinstance(warp.articulation,
+                                                         ArticulationSkelMLP):
+            out["reg_skel_prior"] = warp.articulation.skel_prior_loss()
 
         if self.rtmat_prior is not None:
             cam_losses = []
@@ -168,7 +206,7 @@ class DvrModel(nn.Module):
         loss_dict = losses_mod.compute_recon_loss(rendered, aux_dict, batch, config)
         loss_dict = losses_mod.mask_losses(loss_dict, batch, config)
         loss_dict["reg_eikonal"] = rendered["eikonal"]
-        fg = aux_dict["fg"]
+        fg = aux_dict.get("fg", {})
         for src, dst in (("cyc_dist", "reg_deform_cyc"), ("delta_skin", "reg_delta_skin"),
                          ("skin_entropy", "reg_skin_entropy")):
             if src in fg:

@@ -1,11 +1,14 @@
 """Stage-2 trainer: round-based optimisation of the neural SDF model
 (`vidu4d_tpu/engine/trainer.py`).
 
-Per round: the proxy geometry is refreshed (the SDF on a grid -> marching
-tetrahedra -> aabb and near/far), the canonical mesh and its features are
-exported for Stage 3, then ``iters_per_round`` steps of `train_step` run.
-`mlp_init` first fits the intrinsics and camera MLPs to their priors and
-pretrains the SDF to a sphere.
+Per round: each field's proxy geometry is refreshed (the SDF on a grid ->
+marching tetrahedra -> aabb and near/far), each field's canonical mesh and
+its features are exported (the fg one is what Stage 3 starts from), then
+``iters_per_round`` steps of `train_step` run. `mlp_init` first fits the
+intrinsics and every field's camera MLP to their priors (the fg camera
+prior for both fields, as the JAX trainer does) and pretrains the SDFs to
+a sphere. ``field_type`` "fg", "bg" and "comp" (both) are supported, with
+every ``fg_motion`` of `warp_module`.
 
 Checkpoints (``ckpt_NNNN.pth``, ``ckpt_latest.pth``) are pickled dicts of
 numpy arrays: "params" in the JAX package's flax layout, so that the
@@ -33,7 +36,7 @@ import torch.nn.functional as F
 
 from vidu4d_tpu_torch import convert
 from vidu4d_tpu_torch.data import data_utils
-from vidu4d_tpu_torch.engine.model import DvrModel
+from vidu4d_tpu_torch.engine.model import FIELD_CATEGORIES, DvrModel
 from vidu4d_tpu_torch.engine.optim import adam_step_, make_stage2_optimizer
 from vidu4d_tpu_torch.engine.schedules import progress_schedule
 from vidu4d_tpu_torch.models.fields.dyn_nerf import FieldState
@@ -73,9 +76,6 @@ def check_supported(opts: Dict) -> None:
     o = opts
     unsupported = [
         ((o.get("ngpu", 1) or 1) > 1, "ngpu>1 (multi-GPU)"),
-        (o.get("field_type", "fg") != "fg", f"field_type={o.get('field_type')!r}"),
-        (o.get("fg_motion", "bob") not in ("bob", "rigid"),
-         f"fg_motion={o.get('fg_motion')!r} (the port has 'rigid' and 'bob')"),
         (not o.get("single_inst", True), "single_inst=False"),
     ]
     missing = [what for bad, what in unsupported if bad]
@@ -132,8 +132,10 @@ class Stage2Trainer:
             train_depth_samples=opts.get("train_depth_samples", 64),
             field_depth=opts.get("field_depth", 8), field_width=opts.get("field_width", 256),
             device=self.device, generator=torch.Generator(self.device).manual_seed(seed))
-        self.states = {"fg": FieldState.initial(self.frame_info.num_frames_raw,
-                                                device=self.device)}
+        # one state per field, in the model's category order (fg, then bg)
+        self.states = {cate: FieldState.initial(self.frame_info.num_frames_raw,
+                                                device=self.device)
+                       for cate in FIELD_CATEGORIES[opts.get("field_type", "fg")]}
         self.batcher = data_utils.PairBatcher(self.datasets, opts.get("imgs_per_gpu", 256),
                                               seed=seed)
         # the JAX trainer draws one batch to initialise its parameters
@@ -144,7 +146,14 @@ class Stage2Trainer:
             self.model, learning_rate=opts.get("learning_rate", 5e-4),
             total_steps=self.total_steps, num_rounds=opts["num_rounds"],
             intrinsics_lr_mult=opts.get("intrinsics_lr_mult", 1.0))
-        self._proxy_mesh = None
+        # each field's proxy mesh (verts, faces), once it has one
+        self.proxy_meshes: Dict[str, tuple] = {}
+
+    @property
+    def _proxy_mesh(self):
+        """The first field's proxy mesh (fg's, when there is an fg field),
+        or None."""
+        return self.proxy_meshes.get(next(iter(self.states)))
 
     # ------------------------------------------------------------------
 
@@ -162,7 +171,8 @@ class Stage2Trainer:
 
     def mlp_init(self, sdf_iters: int = 1000, verbose: bool = True) -> Dict:
         """Fit the intrinsics MLP (to loss 1) and each field's camera MLP
-        (to 1e-4) to their priors, pretrain the SDF to a sphere, then build
+        (to 1e-4) to their priors (the fg camera prior for every field,
+        `trainer.py:198-219`), pretrain the SDFs to a sphere, then build
         the proxy geometry with beta 0. Returns the fits' losses, steps and
         seconds."""
         info = {}
@@ -208,10 +218,11 @@ class Stage2Trainer:
 
     def _geometry_init(self, sdf_iters: int = 1000, radius: float = 0.1,
                        verbose: bool = True, draws: Optional[List[Dict]] = None) -> float:
-        """SDF-to-sphere pretrain (`trainer.py:225`): Adam 1e-3 on the SDF
-        error at points drawn in the 0.25-extended aabb, with a visibility
-        and an eikonal term. ``draws``: `geometry_init_draws`. Returns the
-        loss on the last draw after the last step."""
+        """SDF-to-sphere pretrain (`trainer.py:225`): Adam 1e-3 on the sum
+        over the fields (in sorted order: bg, then fg) of the SDF error at
+        points drawn in the 0.25-extended aabb, with a visibility and an
+        eikonal term. ``draws``: `geometry_init_draws`. Returns the loss on
+        the last draw after the last step."""
         draws = draws if draws is not None else self.geometry_init_draws(sdf_iters)
 
         def loss_fn(draw):
@@ -269,7 +280,7 @@ class Stage2Trainer:
             verts, faces = extract_mesh_np(sdf, aabb_ext)
             if len(verts) < 4:
                 continue
-            self._proxy_mesh = (verts, faces)
+            self.proxy_meshes[cate] = (verts, faces)
             proxy_pts, _, _ = sample_mesh_surface(verts, faces, n_proxy,
                                                   rng=np.random.default_rng(0))
             proxy = torch.as_tensor(np.asarray(proxy_pts, np.float32), device=self.device)
@@ -285,31 +296,36 @@ class Stage2Trainer:
             self.states[cate] = FieldState(aabb=aabb, near_far=nf, proxy_pts=proxy)
 
     def export_proxy_mesh(self, path: str) -> None:
+        """The first field's proxy mesh as an OBJ (none before it has one)."""
         if self._proxy_mesh is not None:
             save_obj(path, *self._proxy_mesh)
 
     def export_geometry(self, rnd: int) -> None:
-        """``NNN-fg-geo.obj`` (the proxy mesh), ``NNN-fg-geo-colors.npy``
-        (colours at the vertices, seen along the SDF gradient at frame 0) and
-        ``NNN-fg-feat.npy`` (16-dim unit features at the vertices), the
-        mesh Stage 3 starts from (`trainer.py:490`)."""
-        path = os.path.join(self.save_dir, f"{rnd:03d}-fg-geo.obj")
-        self.export_proxy_mesh(path)
-        if self._proxy_mesh is None:
-            return
-        field = self.model.fields[list(self.states)[0]]
-        verts = torch.as_tensor(np.asarray(self._proxy_mesh[0], np.float32),
-                                device=self.device)
-        with torch.enable_grad():
-            pts = verts.clone().requires_grad_(True)
-            g = torch.autograd.grad(field.sdf(pts)[0].sum(), pts)[0]
-        with torch.no_grad():
-            feats = field.features(verts)
-            fid = torch.zeros(verts.shape[0], dtype=torch.int64, device=self.device)
-            rgb, _ = field.query(verts[:, None, None], direction=safe_normalize(g)[:, None, None],
-                                 frame_id=fid, inst_id=fid)
-        np.save(os.path.join(self.save_dir, f"{rnd:03d}-fg-feat.npy"), feats.cpu().numpy())
-        np.save(path.replace(".obj", "-colors.npy"), rgb[:, 0, 0].cpu().numpy())
+        """Per field (``cate`` fg / bg) with a proxy mesh: ``NNN-<cate>-geo.obj``
+        (the proxy mesh), ``NNN-<cate>-geo-colors.npy`` (colours at the
+        vertices, seen along the SDF gradient at frame 0) and
+        ``NNN-<cate>-feat.npy`` (16-dim unit features at the vertices)
+        (`trainer.py:490`). The fg files are the mesh Stage 3 starts from.
+        The JAX trainer keeps one proxy mesh, the last field's, and writes
+        it under the fg name with the first field's colours and features:
+        for "comp" the bg mesh; the port writes each field's own."""
+        for cate, (verts, faces) in self.proxy_meshes.items():
+            path = os.path.join(self.save_dir, f"{rnd:03d}-{cate}-geo.obj")
+            save_obj(path, verts, faces)
+            field = self.model.fields[cate]
+            verts = torch.as_tensor(np.asarray(verts, np.float32), device=self.device)
+            with torch.enable_grad():
+                pts = verts.clone().requires_grad_(True)
+                g = torch.autograd.grad(field.sdf(pts)[0].sum(), pts)[0]
+            with torch.no_grad():
+                feats = field.features(verts)
+                fid = torch.zeros(verts.shape[0], dtype=torch.int64, device=self.device)
+                rgb, _ = field.query(verts[:, None, None],
+                                     direction=safe_normalize(g)[:, None, None],
+                                     frame_id=fid, inst_id=fid)
+            np.save(os.path.join(self.save_dir, f"{rnd:03d}-{cate}-feat.npy"),
+                    feats.cpu().numpy())
+            np.save(path.replace(".obj", "-colors.npy"), rgb[:, 0, 0].cpu().numpy())
 
     # ------------------------------------------------------------------
     # the step and the round loop (`trainer.py:318-488`)

@@ -5,8 +5,9 @@
 
 Writes ``export_NNNN/`` in the run directory: the canonical geometry,
 ``motion.json`` (per frame: field2cam quaternion and translation in world
-units, and the bones' dual quaternions ``t_articulation`` qr / qd when the
-warp has bones; `reanimate` reads it) and, with ``--export_mesh_seq``
+units, the bones' dual quaternions ``t_articulation`` qr / qd when the
+warp has bones, and the joints' axis-angles ``joint_so3`` when they form a
+skeleton; `reanimate` reads the first two) and, with ``--export_mesh_seq``
 (default), ``fg-NNNNN.obj``: the canonical geometry warped to every
 ``export_mesh_stride``-th frame. Stage 3 (a "gs" ``fg_motion``): the alive
 surfels as ``canonical-surfels.ply`` (3DGS layout), their centres as the
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from vidu4d_tpu_torch import config
+from vidu4d_tpu_torch.models.fields.skeleton import ArticulationSkelMLP
 from vidu4d_tpu_torch.models.gaussian.ply_io import save_ply
 from vidu4d_tpu_torch.models.gaussian.surfels import SurfelParams
 from vidu4d_tpu_torch.ops.marching import save_obj
@@ -35,15 +37,20 @@ from vidu4d_tpu_torch.render import build_trainer, camera_modules
 @torch.no_grad()
 def export_motion_params(trainer, frameid: np.ndarray, path: str) -> Dict:
     """``motion.json`` at raw frame ids (`export.py:29`): field2cam as
-    (quat, trans / exp(logscale)), the articulation as (qr, qd)."""
+    (quat, trans / exp(logscale)) of the Stage-3 deformer or of the Stage-2
+    model's first field (fg, for "comp"), the articulation as (qr, qd), a
+    skeleton's joint angles (B, 3) per frame as ``joint_so3``."""
     owner, _ = camera_modules(trainer)
     fid = torch.as_tensor(np.asarray(frameid), device=trainer.device)
     q, t = owner.camera_mlp(fid)
     npy = lambda x: x.cpu().numpy().tolist()
     motion = {"field2cam": {"quat": npy(q), "trans": npy(t / torch.exp(owner.logscale))}}
     if hasattr(owner.warp, "articulation"):
-        qr, qd = owner.warp.articulation(fid)
+        art = owner.warp.articulation
+        qr, qd = art(fid)
         motion["t_articulation"] = {"qr": npy(qr), "qd": npy(qd)}
+        if isinstance(art, ArticulationSkelMLP):
+            motion["joint_so3"] = npy(art.so3_at(fid))
     with open(path, "w") as f:
         json.dump(motion, f)
     return motion

@@ -1,7 +1,8 @@
 """Dynamic neural SDF field: VolSDF density, neural blend skinning and a
 feature head (`vidu4d_tpu/models/fields/dyn_nerf.py`).
 
-``fg_motion`` "rigid" gives the static field, "bob" the deformable one:
+``fg_motion`` "rigid" gives the static field (the background's), any
+other warp of `warp_module` a deformable one:
 
 * backward warp: camera rays -> time-t object space -> canonical;
 * VolSDF density: the Laplace CDF of the learned SDF;

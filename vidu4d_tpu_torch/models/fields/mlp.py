@@ -15,9 +15,13 @@ def flax_default_init_(module: nn.Module, generator: torch.Generator) -> None:
     """Re-draw every Linear and InstEmbedding below ``module`` the way the
     JAX package's flax modules initialise: Dense kernels lecun-normal
     (truncated at 2 sigma), zero biases, instance codes N(0, 1). All draws
-    come from ``generator``."""
+    come from ``generator``. A Linear marked ``zero_init`` (a flax Dense
+    with zero kernel init) is zeroed instead."""
     for mod in module.modules():
-        if isinstance(mod, nn.Linear):
+        if getattr(mod, "zero_init", False):
+            mod.weight.zero_()
+            mod.bias.zero_()
+        elif isinstance(mod, nn.Linear):
             # flax's variance_scaling(1, "fan_in", "truncated_normal")
             std = (1.0 / mod.in_features) ** 0.5 / 0.87962566103423978
             nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std, b=2 * std,

@@ -75,14 +75,18 @@ def cross_entropy_skin_loss(skin: torch.Tensor) -> torch.Tensor:
 
 
 class SkinningField(nn.Module):
-    """Per-bone 3D Gaussian skinning weights + optional delta-skin MLP."""
+    """Per-bone 3D Gaussian skinning weights + optional delta-skin MLP.
+    ``symm_idx`` (a skeleton's mirror index of each bone) averages each
+    bone's Gaussian scales with its mirror's."""
 
     def __init__(self, num_coords: int, frame_info: FrameInfo, num_inst: int,
                  delta_skin: bool = True, depth: int = 2, width: int = 64,
                  num_freq_xyz: int = 0, num_freq_t: int = 6, inst_channels: int = 32,
-                 init_scale: float = 0.03, device=None):
+                 init_scale: float = 0.03, symm_idx: Optional[Tuple[int, ...]] = None,
+                 device=None):
         super().__init__()
         self.num_freq_xyz = num_freq_xyz
+        self.symm_idx = None if symm_idx is None else list(symm_idx)
         self.log_gauss = nn.Parameter(
             torch.full((num_coords, 3), math.log(init_scale), device=device))
         self.delta_skin = delta_skin
@@ -96,7 +100,11 @@ class SkinningField(nn.Module):
                 device=device)
 
     def get_gauss(self) -> torch.Tensor:
-        return torch.exp(self.log_gauss)
+        """(B, 3) per-bone Gaussian scales (`skinning.py:148`)."""
+        log_gauss = self.log_gauss
+        if self.symm_idx is not None:
+            log_gauss = (log_gauss[self.symm_idx] + log_gauss) / 2.0
+        return torch.exp(log_gauss)
 
     def forward(self, xyz: torch.Tensor, bone2obj: DualQuaternion,
                 frame_id: Optional[torch.Tensor], inst_id: Optional[torch.Tensor]

@@ -1,11 +1,15 @@
 """Warping fields (`vidu4d_tpu/models/fields/warping.py`): the rigid
-`IdentityWarp` (``fg_motion`` "rigid") and the neural dual-quaternion
-blend-skinning `SkinningWarp` over a flat bag of bones ("bob").
+`IdentityWarp`, the dense `DenseWarp` and `DenseWarpSE3`, the neural
+dual-quaternion blend-skinning `SkinningWarp` over a bag of bones or a
+predefined skeleton, the `ComposedWarp` of skinning and a soft dense
+post-warp, and `NVPWarp` (`nvp.py`). `warp_module` maps the ``fg_motion``
+strings of the JAX package onto them.
 
 Every warp is called as ``warp(xyz, frame_id, inst_id, samples_dict=None,
 backward=False, return_qt=False)`` and returns (the warped points, or the
 per-point rigid transform (q, t) with ``return_qt``; an aux dict). The
-other warps of the JAX package wait for later work.
+dense, composed and NVP warps have no SE(3) form: ``return_qt`` raises
+NotImplementedError, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,17 +22,22 @@ from torch import nn
 
 from vidu4d_tpu_torch.data.frame_info import FrameInfo
 from vidu4d_tpu_torch.models.fields.articulation import ArticulationFlatMLP
+from vidu4d_tpu_torch.models.fields.embeddings import TimeEmbedding, pos_embed
+from vidu4d_tpu_torch.models.fields.mlp import CondMLP
+from vidu4d_tpu_torch.models.fields.nvp import NVPWarp
+from vidu4d_tpu_torch.models.fields.skeleton import ArticulationSkelMLP
 from vidu4d_tpu_torch.models.fields.skinning import (
     SkinningField,
     cross_entropy_skin_loss,
     get_xyz_bone_distance,
 )
 from vidu4d_tpu_torch.ops.quaternion import (
+    axis_angle_to_quaternion,
     dual_quaternion_inverse,
     dual_quaternion_mul,
     dual_quaternion_skinning,
+    quaternion_translation_inverse,
 )
-
 
 class IdentityWarp(nn.Module):
     """Rigid warp: no deformation (`warping.py:41`)."""
@@ -43,18 +52,98 @@ class IdentityWarp(nn.Module):
         return xyz, {}
 
 
-class SkinningWarp(nn.Module):
-    """Neural DQ blend-skinning warp over a flat bag of bones."""
+class _TimedEmbed(nn.Module):
+    """The input of the dense warps' MLPs: the points' Fourier embedding
+    and the frames' time code (`warping.py:84`)."""
 
-    def __init__(self, frame_info: FrameInfo, num_se3: int = 25,
+    def __init__(self, frame_info: FrameInfo, num_freq_xyz: int, num_freq_t: int,
+                 device=None):
+        super().__init__()
+        self.num_freq_xyz = num_freq_xyz
+        self.time_embedding = TimeEmbedding(num_freq_t, frame_info, device=device)
+        self.channels = 3 * (2 * num_freq_xyz + 1) + 128
+
+    def embed(self, xyz: torch.Tensor, frame_id: torch.Tensor) -> torch.Tensor:
+        """xyz (M, ..., 3), frame_id (M,) -> (M, ..., channels)."""
+        t_embed = self.time_embedding(frame_id)
+        t_embed = t_embed.reshape((-1,) + (1,) * (xyz.dim() - 2) + (t_embed.shape[-1],))
+        t_embed = t_embed.expand(xyz.shape[:-1] + (t_embed.shape[-1],))
+        return torch.cat([pos_embed(xyz, self.num_freq_xyz), t_embed], dim=-1)
+
+
+class DenseWarp(_TimedEmbed):
+    """D-NeRF-style dense translation field: separate forward and backward
+    MLPs, xyz + 0.1 x motion (`warping.py:60`). No SE(3) form."""
+
+    def __init__(self, frame_info: FrameInfo, num_freq_xyz: int = 6, num_freq_t: int = 6,
+                 depth: int = 6, width: int = 256, device=None):
+        super().__init__(frame_info, num_freq_xyz, num_freq_t, device=device)
+        n = frame_info.num_vids
+        self.forward_map = CondMLP(self.channels, n, depth=depth, width=width,
+                                   out_channels=3, device=device)
+        self.backward_map = CondMLP(self.channels, n, depth=depth, width=width,
+                                    out_channels=3, device=device)
+
+    def forward(self, xyz: torch.Tensor, frame_id: torch.Tensor, inst_id: torch.Tensor,
+                samples_dict: Optional[Dict] = None, backward: bool = False,
+                return_qt: bool = False):
+        if return_qt:
+            raise NotImplementedError("DenseWarp has no SE(3) form")
+        embed = self.embed(xyz, frame_id)
+        mlp = self.backward_map if backward else self.forward_map
+        return xyz + mlp(embed, inst_id) * 0.1, {}
+
+
+class DenseWarpSE3(_TimedEmbed):
+    """Per-point rotation + translation dense warp (`warping.py:104`): an
+    axis-angle head and a translation head scaled by ``trans_scaling``; the
+    backward warp is their inverse. Without ``return_qt`` only the
+    translation moves the points, as in the JAX package."""
+
+    def __init__(self, frame_info: FrameInfo, num_freq_xyz: int = 6, num_freq_t: int = 6,
+                 depth: int = 6, width: int = 256, device=None):
+        super().__init__(frame_info, num_freq_xyz, num_freq_t, device=device)
+        n = frame_info.num_vids
+        self.trans_scaling = nn.Parameter(torch.full((1,), 0.1, device=device))
+        self.forward_map_trans = CondMLP(self.channels, n, depth=depth, width=width // 2,
+                                         out_channels=3, device=device)
+        self.forward_map_rot = CondMLP(self.channels, n, depth=depth, width=width // 2,
+                                       out_channels=3, device=device)
+
+    def forward(self, xyz: torch.Tensor, frame_id: torch.Tensor, inst_id: torch.Tensor,
+                samples_dict: Optional[Dict] = None, backward: bool = False,
+                return_qt: bool = False):
+        embed = self.embed(xyz, frame_id)
+        trans = self.forward_map_trans(embed, inst_id) * self.trans_scaling
+        qr = axis_angle_to_quaternion(self.forward_map_rot(embed, inst_id))
+        if backward:
+            qr, trans = quaternion_translation_inverse(qr, trans)
+        if return_qt:
+            return (qr, trans), {}
+        return xyz + trans, {}
+
+
+class SkinningWarp(nn.Module):
+    """Neural DQ blend-skinning warp (`warping.py:146`): ``skel_type``
+    "flat" is a bag of ``num_se3`` bones, "human" / "quad" a predefined
+    skeleton (its bone count, its mirror-averaged Gaussians)."""
+
+    def __init__(self, frame_info: FrameInfo, num_se3: int = 25, skel_type: str = "flat",
                  init_gauss_scale: float = 0.03, init_beta: float = 0.01,
                  delta_skin: bool = True, device=None):
         super().__init__()
-        self.articulation = ArticulationFlatMLP(frame_info, num_se3=num_se3,
-                                                device=device)
+        if skel_type == "flat":
+            self.articulation = ArticulationFlatMLP(frame_info, num_se3=num_se3,
+                                                    device=device)
+            symm_idx = None
+        else:
+            self.articulation = ArticulationSkelMLP(frame_info, skel_type=skel_type,
+                                                    device=device)
+            num_se3, symm_idx = self.articulation.num_se3, self.articulation.symm_idx
         self.skinning_model = SkinningField(
             num_se3, frame_info, num_inst=frame_info.num_vids,
-            init_scale=init_gauss_scale, delta_skin=delta_skin, device=device)
+            init_scale=init_gauss_scale, delta_skin=delta_skin, symm_idx=symm_idx,
+            device=device)
         self.logibeta = nn.Parameter(
             torch.full((1,), -math.log(init_beta), device=device))
 
@@ -109,11 +198,66 @@ class SkinningWarp(nn.Module):
         return -torch.logit(density) + bias
 
 
+class ComposedWarp(nn.Module):
+    """Skinning warp composed with a soft 2 x 256 `DenseWarp` post-warp
+    (`warping.py:252`): forward = skinning after the post-warp's forward
+    map, backward = the post-warp's backward map after skinning. It is not
+    a `SkinningWarp`: the fields cache no articulation for it. No SE(3)
+    form."""
+
+    def __init__(self, frame_info: FrameInfo, num_se3: int = 25, skel_type: str = "flat",
+                 device=None):
+        super().__init__()
+        self.skin_warp = SkinningWarp(frame_info, num_se3=num_se3, skel_type=skel_type,
+                                      device=device)
+        self.post_warp = DenseWarp(frame_info, depth=2, width=256, device=device)
+
+    def forward(self, xyz: torch.Tensor, frame_id: torch.Tensor, inst_id: torch.Tensor,
+                samples_dict: Optional[Dict] = None, backward: bool = False,
+                return_qt: bool = False):
+        if return_qt:
+            raise NotImplementedError("ComposedWarp has no SE(3) form")
+        if not backward and frame_id is not None:
+            xyz, _ = self.post_warp(xyz, frame_id, inst_id)
+        out, aux = self.skin_warp(xyz, frame_id, inst_id, samples_dict=samples_dict,
+                                  backward=backward)
+        if backward and frame_id is not None:
+            out, _ = self.post_warp(out, frame_id, inst_id, backward=True)
+        return out, aux
+
+    def compute_post_warp_dist2(self, xyz: torch.Tensor, frame_id: torch.Tensor,
+                                inst_id: torch.Tensor) -> torch.Tensor:
+        """Half of |forward(x) - x|^2 + |forward(x) - backward(forward(x))|^2
+        per point (`warping.py:279`): the soft-deform regulariser."""
+        xyz_t, _ = self.post_warp(xyz, frame_id, inst_id)
+        dist2 = torch.sum((xyz_t - xyz) ** 2, dim=-1)
+        xyz_back, _ = self.post_warp(xyz_t, frame_id, inst_id, backward=True)
+        return (dist2 + torch.sum((xyz_t - xyz_back) ** 2, dim=-1)) * 0.5
+
+
 def warp_module(fg_motion: str, frame_info: FrameInfo, device=None) -> nn.Module:
-    """Factory for the ``fg_motion`` strings the port has (`warping.py:287`)."""
+    """The warp of an ``fg_motion`` string (`warping.py:287`): "rigid",
+    "dense", "denseSE3", "bob", "bob-nosoft", "bob-sc" (100 bones),
+    "nvp", "skel-<human|quad>" and "comp*" ("comp_skel-<type>_..." composes
+    that skeleton, any other "comp" string a bag of bones)."""
     if fg_motion == "rigid":
         return IdentityWarp()
+    if fg_motion == "dense":
+        return DenseWarp(frame_info, device=device)
+    if fg_motion == "denseSE3":
+        return DenseWarpSE3(frame_info, device=device)
     if fg_motion == "bob":
         return SkinningWarp(frame_info, device=device)
-    raise NotImplementedError(
-        f"fg_motion {fg_motion!r} is not ported yet (only 'rigid' and 'bob')")
+    if fg_motion == "bob-nosoft":
+        return SkinningWarp(frame_info, delta_skin=False, device=device)
+    if fg_motion == "bob-sc":
+        return SkinningWarp(frame_info, delta_skin=False, num_se3=100, device=device)
+    if fg_motion == "nvp":
+        return NVPWarp(frame_info, device=device)
+    if fg_motion.startswith("skel-"):
+        return SkinningWarp(frame_info, skel_type=fg_motion.split("-")[1], device=device)
+    if fg_motion.startswith("comp"):
+        parts = fg_motion.split("_")
+        skel = parts[1].split("-")[1] if len(parts) > 1 and "skel" in parts[1] else "flat"
+        return ComposedWarp(frame_info, skel_type=skel, device=device)
+    raise NotImplementedError(f"fg_motion {fg_motion!r}")

@@ -17,8 +17,9 @@ from torch import nn
 from vidu4d_tpu_torch.data.frame_info import FrameInfo
 from vidu4d_tpu_torch.models.fields.dyn_nerf import flip_pair
 from vidu4d_tpu_torch.models.fields.mlp import flax_default_init_
+from vidu4d_tpu_torch.models.fields.skeleton import ArticulationSkelMLP
 from vidu4d_tpu_torch.models.fields.time_mlp import CameraMLP, IntrinsicsMLP
-from vidu4d_tpu_torch.models.fields.warping import warp_module
+from vidu4d_tpu_torch.models.fields.warping import SkinningWarp, warp_module
 from vidu4d_tpu_torch.models.gaussian import surfels as sf
 from vidu4d_tpu_torch.ops import geometry as geom
 from vidu4d_tpu_torch.ops import sh as sh_ops
@@ -55,17 +56,15 @@ class GaussianDeformer(nn.Module):
     def get_samples(self, batch: Dict[str, torch.Tensor]) -> Dict:
         """Camera + articulation cache (`deformable.py:63`). A batch
         "field2cam" (M, 7) (quaternion, translation) replaces the camera
-        MLP's, its translation scaled by exp(logscale); a batch
-        "t_articulation" (M, B, 2, 4) (real, dual parts) replaces the
-        articulation's at the frames (reanimation, `deformable.py:100-103`)."""
-        if "joint_so3" in batch:
-            raise NotImplementedError("the joint_so3 override needs a skeleton "
-                                      "articulation, which is not ported yet")
+        MLP's, its translation scaled by exp(logscale). A skinning warp
+        caches its articulations: a batch "joint_so3" (M, B, 3) drives a
+        skeleton's joints (the articulation of a bag of bones ignores it,
+        as in JAX), and a batch "t_articulation" (M, B, 2, 4) (real, dual
+        parts) replaces the articulation at the frames, over "joint_so3"
+        too (reanimation, `deformable.py:86-103`). Other warps cache
+        none."""
         frame_id = batch["frameid"]
         kmat = self.intrinsics(frame_id)
-        t_art, rest_art = self.warp.articulation.vals_and_mean(frame_id)
-        if "t_articulation" in batch:
-            t_art = (batch["t_articulation"][..., 0, :], batch["t_articulation"][..., 1, :])
         if "field2cam" in batch:
             field2cam = (batch["field2cam"][..., :4],
                          batch["field2cam"][..., 4:] * torch.exp(self.logscale))
@@ -77,11 +76,22 @@ class GaussianDeformer(nn.Module):
             "inst_id": batch["dataid"],
             "Kinv": geom.K2inv(kmat) @ geom.K2mat(batch["crop2raw"]),
             "hxy": batch["hxy"],
-            "t_articulation": t_art,
-            "rest_articulation": rest_art,
         }
         if "feature" in batch:
             samples["feature"] = batch["feature"]
+        if isinstance(self.warp, SkinningWarp):
+            art = self.warp.articulation
+            if "joint_so3" in batch and isinstance(art, ArticulationSkelMLP):
+                t_art = art(frame_id, override_so3=batch["joint_so3"])
+                rest = art.mean_vals()
+                rest_art = (rest[0].expand_as(t_art[0]), rest[1].expand_as(t_art[1]))
+            else:
+                t_art, rest_art = art.vals_and_mean(frame_id)
+            if "t_articulation" in batch:
+                t_art = (batch["t_articulation"][..., 0, :],
+                         batch["t_articulation"][..., 1, :])
+            samples["t_articulation"] = t_art
+            samples["rest_articulation"] = rest_art
         return samples
 
     def warp_surfels(self, xyz: torch.Tensor, rotation: torch.Tensor,
@@ -136,7 +146,8 @@ class GaussianDeformer(nn.Module):
         samples_next = dict(samples)
         for k in ("frame_id", "field2cam", "Kinv", "t_articulation",
                   "rest_articulation"):
-            samples_next[k] = flip_pair(samples[k])
+            if k in samples:
+                samples_next[k] = flip_pair(samples[k])
         (q_n, t_n), _ = self._warp_qt(xyz_cano, samples_next)
         xyz_t_next = quaternion_translation_apply(q_n, t_n, xyz_cano)
         q2, t2 = samples_next["field2cam"]
@@ -171,6 +182,15 @@ class GaussianDeformer(nn.Module):
         xyz_cam = quaternion_translation_apply(q_f[:, None], t_f[:, None], xyz_t)
         xy = geom.pinhole_projection(geom.Kmatinv(samples["Kinv"]), xyz_cam)[..., :2]
         return xy, xyz_cam
+
+    def gauss_density_at(self, xyz: torch.Tensor, samples: Dict) -> Optional[torch.Tensor]:
+        """Bone-proxy density (...,) at canonical points (..., 3) under the
+        first frame's rest articulation; None for a warp without bones
+        (`deformable.py:245`)."""
+        if not isinstance(self.warp, SkinningWarp):
+            return None
+        rest = samples["rest_articulation"]
+        return self.warp.get_gauss_density(xyz, bone2obj=(rest[0][:1], rest[1][:1]))[..., 0]
 
     def background(self) -> torch.Tensor:
         if self.learnable_bg:

@@ -112,3 +112,26 @@ def sample_grid(aabb: torch.Tensor, grid_size: int) -> torch.Tensor:
 
 def points_aabb(pts: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.amin(pts, dim=0), torch.amax(pts, dim=0)], dim=0)
+
+
+def hat_map(v: torch.Tensor) -> torch.Tensor:
+    """(..., 3) vector -> (..., 3, 3) skew-symmetric matrix (`geometry.py:101`)."""
+    x, y, z = v.unbind(-1)
+    zero = torch.zeros_like(x)
+    rows = torch.stack([zero, -z, y, z, zero, -x, -y, x, zero], dim=-1)
+    return rows.reshape(v.shape[:-1] + (3, 3))
+
+
+def so3_to_exp_map(so3: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Rodrigues: (..., 3) rotation vectors -> (..., 3, 3) rotation matrices,
+    with the angle clamped to theta = max(|so3|, eps) (`geometry.py:109`).
+
+    Below eps the angle's gradient is 0 in both packages. At exactly
+    so3 = 0 the port's gradient is finite (``vector_norm`` has a 0
+    subgradient there), where the JAX package's is NaN (its norm's
+    infinite derivative times the clamp's 0)."""
+    theta = torch.clamp(torch.linalg.vector_norm(so3, dim=-1, keepdim=True), min=eps)
+    V = hat_map(so3 / theta)
+    theta = theta[..., None]
+    eye = torch.eye(3, dtype=so3.dtype, device=so3.device)
+    return eye + torch.sin(theta) * V + (1.0 - torch.cos(theta)) * (V @ V)

@@ -28,7 +28,8 @@ from vidu4d_tpu_torch.utils.io import save_rendered
 def reanimate(opts: Dict, device="cuda") -> Dict[str, np.ndarray]:
     """Render ``opts["motion_path"]``'s frames (`reanimate.py:23`): the
     batch of frame 0 repeated, its field2cam and t_articulation replaced
-    by the motion's. Returns the (N, res, res, c) numpy outputs."""
+    by the motion's (its ``joint_so3`` is not read, as in the JAX
+    package). Returns the (N, res, res, c) numpy outputs."""
     trainer = build_trainer(opts, device)
     with open(opts["motion_path"]) as f:
         motion = json.load(f)
