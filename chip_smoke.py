@@ -158,6 +158,23 @@ Phases (any failed check raises, so the exit code is non-zero):
      fg mesh and the checkpoint (200k surfels, 2 steps, K1 and K2 launched,
      no plain version); `reanimate.main` of that Stage 3 with the Stage-2
      motion at 256^2 (16 finite frames, K1 launched, no plain version).
+ 17. [stage1] (`stage1_small_vs_cpu`, `stage1_path`): `preprocess_video`
+     on a 10 x 64 x 64 clip (crop 32, deltas (1, 2), its masks given) on
+     the card and on the CPU, every written file within S1_TOL, and the
+     motion-seeded segmentation of both within 0.5% of the pixels; then a
+     48 x 720 x 1280 video (a textured 200k-surfel ellipsoid shell turning
+     3 deg and drifting 4 px per frame over a background panning 3 px per
+     frame, rendered by K1) through `preprocess_video(...,
+     segment_backend="auto")` with every other default (crop 256, deltas
+     (1, 2, 4, 8), TSDF grid 96, canonical 2 x 500 steps) and
+     `write_config`: the RAFT, DepthNet and FeatNet backends, every file of
+     the contract with JAX's shape and dtype and finite, canonical z in
+     (0, 10], a non-empty centred mesh, the port's loaders reading it, no
+     tile kernel launched; prints the seed's source, mask IoU and depth
+     rank correlation against the render's ground truth, each stage's
+     seconds, RAFT's chunk and the peak memory. Then `stage2_path` on that
+     database (S2_FLAGS, full mlp_init, 1 round of 10 steps, the 512^2
+     render, the gs-bob hand-off: K1 and K2 launched, no plain version).
 The last two lines are a JSON object of per-kernel results and
 {"ok": true, "device": {...}}.
 
@@ -200,6 +217,15 @@ leave only rounding); deformer parameters after the first AdamW update
 within 2 lr x multiplier (Adam's first step is ~lr * g / |g|, which flips
 sign where g is near 0), and to 1e-6 + 1e-3 of that where |g| > 1e-2
 max |g|.
+Stage 1's small clip, card vs CPU (S1_TOL, the bounds of
+tests/test_torch_preprocess_pipeline.py): annotations, crop2raw and
+is_detected equal; crops within one float16 step; flow within the RAFT
+bound 2e-4 plus a float16 step at 16 px, occlusion at <= 0.5% of the
+pixels; depth a float16 step at 4; the features' masked-out pixels equal
+and unit vectors elsewhere (the PCA basis may turn within near-equal
+singular values); cameras 2e-2 rad and 2e-2; canonical translations 1e-6
+(from the mask bbox), rotations 0.05 rad; the centred mesh's bounds 5% and
+symmetric Chamfer distance 2% of its extent; the config text equal.
 """
 
 from __future__ import annotations
@@ -383,6 +409,34 @@ S2C_FLAGS = ["--seqname", "toy", "--logname", "s2comp", "--field_type", "comp",
              "--save_freq", "1", "--seed", "0", "--learning_rate", "3e-5"]
 S2C_TERMS = S2_TERMS | {"reg_skel_prior"}
 S2C_REANIMATE_RES = 256
+# [stage1]: a video through the port's Stage 1 (`preprocess_video` with the
+# defaults a user without masks runs: segment_backend "auto", crop 256,
+# deltas (1, 2, 4, 8), TSDF grid 96, canonical 2 x 500 steps), then Stage 2
+# (S2_FLAGS on its database: full mlp_init, 1 round of S1_S2_ITERS steps)
+# and the gs-bob hand-off. The video: S1_FRAMES frames at S1_RES of a
+# textured ellipsoid shell of S1_SURFELS surfels (semi-axes S1_AXES at
+# S1_DEPTH, the pipeline's raw focal max(H, W)) turning S1_TURN_DEG per
+# frame and drifting S1_DRIFT_PX, rendered by the port's K1 over a
+# procedural background that pans S1_PAN_PX per frame
+S1_FRAMES, S1_RES, S1_SURFELS = 48, (720, 1280), 200_000
+S1_AXES, S1_DEPTH = (0.30, 0.38, 0.24), 2.0
+S1_TURN_DEG, S1_DRIFT_PX, S1_PAN_PX = 3.0, 4.0, 3.0
+S1_DELTAS, S1_CROP, S1_S2_ITERS = (1, 2, 4, 8), 256, 10
+S1_S2_FLAGS = (["--seqname", "synth", "--logname", "s1s2"] + S2_FLAGS[4:]).copy()
+S1_S2_FLAGS[S1_S2_FLAGS.index("--num_rounds") + 1] = "1"
+S1_S2_FLAGS[S1_S2_FLAGS.index("--iters_per_round") + 1] = str(S1_S2_ITERS)
+# the small clip on the card and on the CPU: frames, height, width, surfels,
+# crop, deltas, TSDF grid; its masks given (the render's alpha > 0.5)
+S1_SMALL = (10, 64, 64, 4096, 32, (1, 2), 32)
+# card vs CPU bounds of the small clip, those of
+# tests/test_torch_preprocess_pipeline.py: crops one float16 step; flow the
+# RAFT bound + a float16 step at 16 px; occlusion / masks <= 0.5% of the
+# pixels; depth a float16 step at 4; cameras 2e-2 rad / 2e-2; the mesh's
+# bounds 5% and Chamfer 2% of its extent; canonical translations 1e-6,
+# rotations 0.05 rad
+S1_TOL = {"crop": 2.0 ** -10, "flow": 2e-4 + 2.0 ** -6, "share": 5e-3, "depth": 4e-3,
+          "cam_rad": 2e-2, "cam_t": 2e-2, "mesh_bounds": 0.05, "chamfer": 0.02,
+          "canon_t": 1e-6, "canon_rad": 0.05}
 
 
 def log(msg: str) -> None:
@@ -1989,7 +2043,8 @@ def stage2_small_vs_cpu(tmp, fg_motion="bob", field_type="fg", steps=2, init=Non
 
 
 def stage2_path(tmp, flags=S2_FLAGS, rounds=S2_ROUNDS, terms=S2_TERMS, tag="stage2",
-                handoff_motion="gs-bob", export_reanimate=False):
+                handoff_motion="gs-bob", export_reanimate=False, database=None,
+                iters=S2_ITERS):
     """A Stage-2 recipe on the card through the port's entry points (``flags``:
     S2_FLAGS, the README's, or S2C_FLAGS, comp + skel-quad), in a run
     directory holding make_fake_db(T=16) at 256^2: `Stage2Trainer` with the
@@ -2003,6 +2058,8 @@ def stage2_path(tmp, flags=S2_FLAGS, rounds=S2_ROUNDS, terms=S2_TERMS, tag="stag
     and ckpt_latest.pth for S2_HANDOFF_STEPS steps; with
     ``export_reanimate`` then `reanimate.main` of that Stage 3 with the
     Stage-2 export's motion at S2C_REANIMATE_RES^2. Logs under ``[tag]``.
+    ``database``: a database to train on (linked into the run directory)
+    in place of make_fake_db's; ``iters``: steps per round.
     Returns (report, kernel launches of the Stage-2 training, of the
     hand-off, of the reanimation or None)."""
     import torch
@@ -2018,7 +2075,12 @@ def stage2_path(tmp, flags=S2_FLAGS, rounds=S2_ROUNDS, terms=S2_TERMS, tag="stag
 
     run = os.path.join(tmp, tag)
     os.makedirs(run)
-    load_test_module("helpers").make_fake_db(run, num_vids=1, T=S2_FRAMES, H=S2_RES, W=S2_RES)
+    if database is None:
+        load_test_module("helpers").make_fake_db(run, num_vids=1, T=S2_FRAMES, H=S2_RES,
+                                                 W=S2_RES)
+    else:
+        os.symlink(os.path.abspath(database), os.path.join(run, "database"))
+    seqname = flags[flags.index("--seqname") + 1]
     cwd = os.getcwd()
     os.chdir(run)  # the command line reads database/ from the working directory
     rep = {"step_ms": [], "batch_ms": [], "aux_ms": [], "export_ms": []}
@@ -2091,7 +2153,7 @@ def stage2_path(tmp, flags=S2_FLAGS, rounds=S2_ROUNDS, terms=S2_TERMS, tag="stag
         rep["round_s"] = list(trainer.round_seconds)
         bad = [(i, k) for i, m in enumerate(metrics) for k, v in m.items() if not np.isfinite(v)]
         missing = terms - set(metrics[-1])
-        if bad or missing or len(metrics) != rounds * S2_ITERS:
+        if bad or missing or len(metrics) != rounds * iters:
             raise AssertionError(f"{tag} steps: {len(metrics)}, non-finite {bad[:5]}, "
                                  f"missing terms {sorted(missing)}")
         moved = [k for k, p in trainer.model.named_parameters()
@@ -2188,7 +2250,7 @@ def stage2_path(tmp, flags=S2_FLAGS, rounds=S2_ROUNDS, terms=S2_TERMS, tag="stag
         Stage3Trainer.train_step = s3_train_step
         kernels.reset_counts()
         t0 = time.perf_counter()
-        s3 = train_cli.main(["--seqname", "toy", "--logname", f"s3-{tag}", "--fg_motion",
+        s3 = train_cli.main(["--seqname", seqname, "--logname", f"s3-{tag}", "--fg_motion",
                              handoff_motion, "--train_res", str(S2_RES), "--num_rounds", "1",
                              "--iters_per_round", str(S2_HANDOFF_STEPS), "--imgs_per_gpu",
                              "1", "--pixels_per_image", "-1", "--learning_rate", "3e-5",
@@ -2235,6 +2297,290 @@ def stage2_path(tmp, flags=S2_FLAGS, rounds=S2_ROUNDS, terms=S2_TERMS, tag="stag
         restore()
         os.chdir(cwd)
     return rep, s2_counts, handoff, reanimate_counts
+
+
+def stage1_video(frames, h, w, n, device="cuda", seed=0):
+    """A synthetic video of ``frames`` frames at h x w rendered by the
+    port (K1 on the card): ``n`` opaque surfels tangent to an ellipsoid
+    shell (S1_AXES at S1_DEPTH, colours a texture of the object's own
+    coordinates), turning S1_TURN_DEG per frame about a tilted axis and
+    drifting S1_DRIFT_PX (scaled by w / 1280) per frame, over a procedural
+    background panning S1_PAN_PX (scaled) per frame; the camera is the
+    pipeline's raw one (focal max(h, w), centred). Returns (frames
+    (T, h, w, 3) float32, ground-truth masks (alpha > 0.5) and depths
+    (T, h, w) float32)."""
+    import torch
+
+    from vidu4d_tpu_torch.ops.quaternion import matrix_to_quaternion, quaternion_mul
+    from vidu4d_tpu_torch.ops.rasterize import rasterize
+
+    rng = np.random.default_rng(seed)
+    par = load_test_module("torch_parity")
+    axes = np.asarray(S1_AXES)
+    u = rng.normal(size=(n, 3))
+    pts = u / np.linalg.norm(u, axis=-1, keepdims=True) * axes
+    normal = pts / axes ** 2
+    normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
+    tangent = np.cross(normal, rng.normal(size=(n, 3)))
+    tangent /= np.linalg.norm(tangent, axis=-1, keepdims=True)
+    quat0 = par.rot_to_qvec(np.stack([tangent, np.cross(normal, tangent), normal], axis=-1))
+    checker = np.sign(np.sin(24 * pts[:, 0]) * np.sin(24 * pts[:, 1]) * np.sin(24 * pts[:, 2]))
+    cols = np.clip(np.stack([0.65 + 0.2 * np.sin(9 * pts[:, 1] + 1.0),
+                             0.35 + 0.2 * np.sin(11 * pts[:, 2]),
+                             0.25 + 0.15 * np.cos(7 * pts[:, 0])], -1)
+                   + 0.15 * checker[:, None], 0, 1)
+    area = 4 * np.pi * np.prod(axes) ** (2 / 3)
+    sigma = 0.8 * np.sqrt(area / n)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    focal, scale = float(max(h, w)), w / 1280.0
+    intrins = t([focal, focal, w / 2.0, h / 2.0])
+    tilt = np.radians(20.0)
+    tilt_m = np.array([[1, 0, 0], [0, np.cos(tilt), -np.sin(tilt)], [0, np.sin(tilt), np.cos(tilt)]])
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32) / scale
+    pts_t, quat_t = t(pts), t(quat0)
+    out_f, out_m, out_d = [], [], []
+    with torch.no_grad():
+        for i in range(frames):
+            a = np.radians(S1_TURN_DEG * i)
+            spin = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+            rot = tilt_m @ spin
+            centre = np.array([(-0.12 + S1_DRIFT_PX * i / 1280.0) * S1_DEPTH, 0.02, S1_DEPTH])
+            means = pts_t @ t(rot).T + t(centre)
+            quats = quaternion_mul(matrix_to_quaternion(t(rot))[None].expand(n, 4), quat_t)
+            out = rasterize(means, quats, t(np.full((n, 2), sigma)), t(np.full(n, 0.9)),
+                            t(np.eye(4)), intrins, h, w, colors=t(cols))
+            bx = xs + S1_PAN_PX * i
+            bg = np.stack([0.30 + 0.12 * np.sin(bx / 17 + c) * np.cos(ys / 23 - c)
+                           + 0.08 * np.sin(bx / 5.3 + 2 * c) * np.sin(ys / 4.1 - c)
+                           + 0.05 * np.sign(np.sin(bx / 9.7) * np.sin(ys / 8.3 + c))
+                           for c in (0.0, 1.3, 2.1)], -1)
+            alpha = out.alpha.cpu().numpy()[..., None]
+            out_f.append(np.clip(out.color.cpu().numpy() + (1 - alpha) * bg, 0, 1))
+            out_m.append(alpha[..., 0] > 0.5)
+            out_d.append(out.depth.cpu().numpy() / np.maximum(alpha[..., 0], 1e-6))
+    return (np.stack(out_f).astype(np.float32), np.stack(out_m),
+            np.stack(out_d).astype(np.float32))
+
+
+def stage1_files(seq, frames, crop, deltas):
+    """The database files Stage 1 writes for one video (as the JAX package
+    writes them): relative path -> (shape, dtype) or None; the frames as
+    .jpg with imageio installed, else .png (the card's host has none)."""
+    import importlib.util
+
+    ext = "jpg" if importlib.util.find_spec("imageio") else "png"
+    full = lambda kind, name: os.path.join("processed", kind, "Full-Resolution", seq, name)
+    pre = f"crop-{crop}"
+    files = {full("JPEGImages", f"{pre}.npy"): ((frames, crop, crop, 3), "float16"),
+             full("Annotations", f"{pre}.npy"): ((frames, crop, crop, 2), "float16"),
+             full("Annotations", f"{pre}-crop2raw.npy"): ((frames, 4), "float32"),
+             full("Annotations", f"{pre}-is_detected.npy"): ((frames,), "float32"),
+             full("Depth", f"{pre}.npy"): ((frames, crop, crop), "float16"),
+             full("Features", f"{pre}-dinov2-01.npy"): ((frames, 112, 112, 16), "float16")}
+    for d in deltas:
+        for kind in ("FlowFW", "FlowBW"):
+            files[full(f"{kind}_{d}", f"{pre}.npy")] = ((-(-(frames - d) // d), crop, crop, 3),
+                                                         "float16")
+    for name in ("00.npy", "01.npy", "01-canonical.npy"):
+        files[full("Cameras", name)] = ((frames, 4, 4), "float32")
+    for name in ("mesh-01-centered.obj", "mesh-00-centered.obj"):
+        files[full("Cameras", name)] = None
+    for i in range(frames):
+        files[full("JPEGImages", f"{i:05d}.{ext}")] = None
+    return files
+
+
+def check_stage1_files(root, files):
+    """Every file exists; every .npy has its shape and dtype and is finite."""
+    bad = []
+    for rel, spec in files.items():
+        path = os.path.join(root, rel)
+        if not os.path.isfile(path) or os.path.getsize(path) == 0:
+            bad.append(f"missing {rel}")
+        elif spec is not None:
+            arr = np.load(path)
+            if arr.shape != spec[0] or str(arr.dtype) != spec[1] or not np.isfinite(arr).all():
+                bad.append(f"{rel}: {arr.shape} {arr.dtype} finite {np.isfinite(arr).all()}")
+    if bad:
+        raise AssertionError(f"stage1 database: {bad}")
+
+
+def compare_stage1(ref_root, got_root, seq, crop, deltas):
+    """A Stage-1 database (got) against another of the same clip (ref)
+    within S1_TOL, file by file. Returns the worst differences."""
+    import torch
+
+    from vidu4d_tpu_torch.ops.geometry import rot_angle
+    from vidu4d_tpu_torch.ops.marching import load_obj
+
+    def load(root, kind, name):
+        return np.load(os.path.join(root, "processed", kind, "Full-Resolution", seq, name))
+
+    def angles(a, b):
+        m = torch.as_tensor(a[:, :3, :3]) @ torch.as_tensor(b[:, :3, :3]).transpose(-1, -2)
+        return float(rot_angle(m).max())
+
+    pre, rep, bad = f"crop-{crop}", {}, []
+    f32 = lambda kind, name: [load(r, kind, name).astype(np.float32) for r in (ref_root, got_root)]
+    a, b = f32("JPEGImages", f"{pre}.npy")
+    rep["crop"] = float(np.abs(a - b).max())
+    for name in (f"{pre}.npy", f"{pre}-crop2raw.npy", f"{pre}-is_detected.npy"):
+        a, b = f32("Annotations", name)
+        rep[f"ann {name}"] = float(np.abs(a - b).max())
+        if rep[f"ann {name}"] != 0.0:
+            bad.append(f"Annotations {name}")
+    for d in deltas:
+        for kind in ("FlowFW", "FlowBW"):
+            a, b = f32(f"{kind}_{d}", f"{pre}.npy")
+            rep[f"{kind}_{d}"] = [float(np.abs(a[..., :2] - b[..., :2]).max()),
+                                  float(np.mean(a[..., 2] != b[..., 2]))]
+            if rep[f"{kind}_{d}"][0] > S1_TOL["flow"] or rep[f"{kind}_{d}"][1] > S1_TOL["share"]:
+                bad.append(f"{kind}_{d}")
+    a, b = f32("Depth", f"{pre}.npy")
+    rep["depth"] = float(np.abs(a - b).max())
+    a, b = f32("Features", f"{pre}-dinov2-01.npy")
+    off_a, off_b = np.all(a == 0, -1), np.all(b == 0, -1)
+    rep["features_off_equal"] = bool(np.array_equal(off_a, off_b))
+    rep["features_norm_dev"] = float(np.abs(np.linalg.norm(b, axis=-1)[~off_b] - 1).max())
+    for name in ("00.npy", "01.npy"):
+        a, b = f32("Cameras", name)
+        rep[f"cam {name}"] = [angles(a, b), float(np.abs(a[:, :3, 3] - b[:, :3, 3]).max())]
+        if rep[f"cam {name}"][0] > S1_TOL["cam_rad"] or rep[f"cam {name}"][1] > S1_TOL["cam_t"]:
+            bad.append(f"Cameras {name}")
+    a, b = f32("Cameras", "01-canonical.npy")
+    rep["canonical"] = [angles(a, b), float(np.abs(a[:, :3, 3] - b[:, :3, 3]).max())]
+    mesh = [load_obj(os.path.join(r, "processed", "Cameras", "Full-Resolution", seq,
+                                  "mesh-01-centered.obj"))[0] for r in (ref_root, got_root)]
+    extent = float((mesh[0].max(0) - mesh[0].min(0)).max())
+    dist = torch.cdist(torch.as_tensor(mesh[1]), torch.as_tensor(mesh[0]))
+    rep["mesh"] = {"verts": [len(m) for m in mesh], "extent": extent,
+                   "bounds": float(max(np.abs(mesh[0].min(0) - mesh[1].min(0)).max(),
+                                       np.abs(mesh[0].max(0) - mesh[1].max(0)).max())),
+                   "chamfer": 0.5 * float(dist.min(1).values.mean() + dist.min(0).values.mean())}
+    texts = []
+    for r in (ref_root, got_root):
+        with open(os.path.join(r, "configs", f"{seq.rsplit('-', 1)[0]}.config")) as f:
+            texts.append(f.read().replace(r, "<root>"))
+    if (rep["crop"] > S1_TOL["crop"] or rep["depth"] > S1_TOL["depth"]
+            or not rep["features_off_equal"] or rep["features_norm_dev"] > 2e-3
+            or rep["canonical"][0] > S1_TOL["canon_rad"]
+            or rep["canonical"][1] > S1_TOL["canon_t"]
+            or rep["mesh"]["bounds"] > S1_TOL["mesh_bounds"] * extent
+            or rep["mesh"]["chamfer"] > S1_TOL["chamfer"] * extent or texts[0] != texts[1]):
+        bad.append("crop / depth / features / canonical / mesh / config")
+    if bad:
+        raise AssertionError(f"stage1 card vs cpu: {bad}: {rep}")
+    return rep
+
+
+def stage1_small_vs_cpu(tmp):
+    """`preprocess_video` on the S1_SMALL clip (its masks given) on the
+    card and on the CPU, compared file by file (`compare_stage1`); then
+    `segment_video` with the motion seed on both, masks within
+    S1_TOL["share"]."""
+    import torch
+
+    from vidu4d_tpu_torch.preprocess.pipeline import preprocess_video, write_config
+    from vidu4d_tpu_torch.preprocess.segment import segment_video
+
+    nf, h, w, n, crop, deltas, grid = S1_SMALL
+    frames, masks, _ = stage1_video(nf, h, w, n)
+    roots = {}
+    for dev in ("cpu", "cuda"):
+        roots[dev] = os.path.join(tmp, f"stage1-small-{dev}", "database")
+        preprocess_video(frames, roots[dev], "small-0000", masks=masks.astype(np.float32),
+                         crop_size=crop, delta_list=deltas, tsdf_grid=grid, device=dev)
+        write_config(roots[dev], "small", crop_size=crop)
+    rep = compare_stage1(roots["cpu"], roots["cuda"], "small-0000", crop, deltas)
+    seg = {dev: segment_video(frames, auto_seed=True, device=dev) for dev in ("cpu", "cuda")}
+    rep["segment_auto_share"] = float(np.mean((seg["cpu"] > 0.5) != (seg["cuda"] > 0.5)))
+    if rep["segment_auto_share"] > S1_TOL["share"]:
+        raise AssertionError(f"stage1 small segment card vs cpu: {rep['segment_auto_share']}")
+    log(f"[stage1 small cpu-vs-gpu {nf}x{h}x{w}] {json.dumps(rep)}")
+    torch.cuda.empty_cache()
+    return rep
+
+
+def stage1_path(tmp):
+    """[stage1]: the S1_FRAMES x S1_RES video through `preprocess_video`
+    (segment_backend "auto", the defaults) and `write_config` on the card;
+    requires the RAFT / DepthNet / FeatNet backends, every file of the
+    contract (`stage1_files`) with its shape and dtype and finite,
+    canonical z in (0, 10], a non-empty centred mesh, the port's loaders
+    reading the database back, and no tile kernel launched; prints the
+    seed's source, the mask IoU and the depth's rank correlation against
+    the render's ground truth (in the crop frame), each stage's seconds,
+    RAFT's chunk and the peak memory. Then `stage2_path` on this database
+    (S1_S2_FLAGS: full mlp_init, 1 round of S1_S2_ITERS steps, the render,
+    the gs-bob hand-off). Returns (report, Stage-1 launches, Stage-2
+    launches, hand-off launches)."""
+    import torch
+    from scipy.stats import spearmanr
+
+    from vidu4d_tpu_torch import kernels
+    from vidu4d_tpu_torch.data import data_utils
+    from vidu4d_tpu_torch.preprocess import ops as pops
+    from vidu4d_tpu_torch.preprocess.pipeline import preprocess_video, write_config
+
+    t0 = time.perf_counter()
+    frames, gt_mask, gt_depth = stage1_video(S1_FRAMES, *S1_RES, S1_SURFELS)
+    rep = {"render_s": time.perf_counter() - t0, "gt_cover": float(gt_mask.mean())}
+    db = os.path.join(tmp, "stage1", "database")
+    stats = {}
+    kernels.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    preprocess_video(frames, db, "synth-0000", masks=None, segment_backend="auto",
+                     device="cuda", stats=stats)
+    write_config(db, "synth")
+    torch.cuda.synchronize()
+    s1_counts = dict(kernels.COUNTS)
+    rep["preprocess_s"] = time.perf_counter() - t0
+    rep["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    rep.update(stats)
+    backends = (stats["segment_flow"], stats["flow"], stats["depth"], stats["features"])
+    if backends != ("raft", "raft", "depthnet", "featnet") or any(s1_counts.values()):
+        raise AssertionError(f"stage1 backends {backends}, launches {s1_counts}")
+    check_stage1_files(db, stage1_files("synth-0000", S1_FRAMES, S1_CROP, S1_DELTAS))
+    full = lambda kind, name: np.load(os.path.join(db, "processed", kind, "Full-Resolution",
+                                                   "synth-0000", name))
+    canon = full("Cameras", "01-canonical.npy")
+    from vidu4d_tpu_torch.ops.marching import load_obj
+
+    mesh_v, mesh_f = load_obj(os.path.join(db, "processed", "Cameras", "Full-Resolution",
+                                           "synth-0000", "mesh-01-centered.obj"))
+    rep["mesh"] = [int(len(mesh_v)), int(len(mesh_f))]
+    rep["canonical_z"] = [float(canon[:, 2, 3].min()), float(canon[:, 2, 3].max())]
+    if not ((canon[:, 2, 3] > 0).all() and (canon[:, 2, 3] <= 10.0).all() and len(mesh_f)):
+        raise AssertionError(f"stage1: canonical z {rep['canonical_z']}, mesh {rep['mesh']}")
+    datasets = data_utils.build_datasets({"dataroot": db, "seqname": "synth",
+                                          "data_prefix": "crop", "train_res": S1_CROP})
+    info = data_utils.get_data_info(datasets)
+    if info["rtmat"].shape[1] != S1_FRAMES or not np.isfinite(info["rtmat"]).all():
+        raise AssertionError(f"stage1: the loaders read rtmat {info['rtmat'].shape}")
+
+    # against the render's ground truth, in the crop frame
+    c2r = torch.as_tensor(full("Annotations", f"crop-{S1_CROP}-crop2raw.npy"))
+    ann = full("Annotations", f"crop-{S1_CROP}.npy").astype(np.float32)[..., 0] > 0.5
+    depth = full("Depth", f"crop-{S1_CROP}.npy").astype(np.float32)
+    ious, rhos = [], []
+    for i in range(S1_FRAMES):
+        m = pops.crop_resample(torch.as_tensor(gt_mask[i, ..., None], dtype=torch.float32),
+                               c2r[i], S1_CROP, nearest=True)[..., 0].numpy() > 0.5
+        d = pops.crop_resample(torch.as_tensor(gt_depth[i, ..., None]), c2r[i],
+                               S1_CROP)[..., 0].numpy()
+        ious.append(float((m & ann[i]).sum() / max((m | ann[i]).sum(), 1)))
+        rhos.append(float(spearmanr(depth[i][m], d[m])[0]) if m.sum() > 2 else float("nan"))
+    rep["mask_iou"] = [float(np.min(ious)), float(np.mean(ious))]
+    rep["depth_rank_corr"] = [float(np.nanmin(rhos)), float(np.nanmean(rhos))]
+    log(f"[stage1] {json.dumps(rep)}")
+    torch.cuda.empty_cache()
+
+    s2_rep, s2_counts, handoff, _ = stage2_path(tmp, S1_S2_FLAGS, 1, S2_TERMS, "stage1-stage2",
+                                                database=db, iters=S1_S2_ITERS)
+    rep["stage2"] = {k: s2_rep[k] for k in ("mlp_init_s", "step_ms_median", "peak_gib",
+                                             "render_s", "handoff_s")}
+    return rep, s1_counts, s2_counts, handoff
 
 
 def main() -> int:
@@ -2376,6 +2722,14 @@ def main() -> int:
         # render and export, the gs-skel-quad hand-off and its reanimation
         s2c_rep, s2c_counts, s2c_handoff, s2c_reanimate = stage2_path(
             tmp, S2C_FLAGS, S2C_ROUNDS, S2C_TERMS, "stage2-comp-skel", "gs-skel-quad", True)
+        torch.cuda.empty_cache()
+
+        # [stage1]: the card vs the CPU on a small clip; then a 720p video
+        # through Stage 1, Stage 2 on its database and the gs-bob hand-off
+        t0 = time.perf_counter()
+        stage1_small_vs_cpu(tmp)
+        s1_rep, s1_counts, s1_s2_counts, s1_handoff = stage1_path(tmp)
+        log(f"[stage1 wall] {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2411,7 +2765,11 @@ def main() -> int:
          "handoff_skel_launches": s2c_handoff[name],
          "reanimate_skel_launches": s2c_reanimate[name],
          # one small card step of each other Stage-3 motion
-         "s3_motion_launches": {m: c[name] for m, c in s3_motion_counts.items()}}
+         "s3_motion_launches": {m: c[name] for m, c in s3_motion_counts.items()},
+         # Stage 1 (preprocess_video on the 720p video) runs no tile kernel;
+         # Stage 2 on its database neither, the hand-off to Stage 3 both
+         "stage1_launches": s1_counts[name], "stage1_stage2_launches": s1_s2_counts[name],
+         "stage1_handoff_launches": s1_handoff[name]}
         for name, key, replaces in (
             ("tile_forward", "fwd", "vidu4d_tpu/ops/rasterize/pallas_kernel.py:111"),
             ("tile_backward", "bwd", "vidu4d_tpu/ops/rasterize/pallas_backward.py:95"))
@@ -2447,7 +2805,15 @@ def main() -> int:
         f"{s2c_rep['mlp_init_s']:.1f} s, median step {s2c_rep['step_ms_median']:.3f} ms (p90 "
         f"{s2c_rep['step_ms_p90']:.3f}), peak {s2c_rep['peak_gib']:.2f} GiB, render "
         f"{s2c_rep['render_s']:.1f} s, export {s2c_rep['export_s']:.1f} s, gs-skel-quad "
-        f"hand-off {s2c_rep['handoff_s']:.1f} s, reanimate {s2c_rep['reanimate_s']:.1f} s")
+        f"hand-off {s2c_rep['handoff_s']:.1f} s, reanimate {s2c_rep['reanimate_s']:.1f} s; "
+        f"stage 1 ({S1_FRAMES} x {S1_RES[0]}x{S1_RES[1]}, seed {s1_rep['seed']}): "
+        f"preprocess_video {s1_rep['seconds']['total']:.1f} s (segment "
+        f"{s1_rep['seconds']['segment']:.1f}, canonical {s1_rep['seconds']['canonical']:.1f}), "
+        f"peak {s1_rep['peak_gib']:.2f} GiB, mask IoU {s1_rep['mask_iou'][1]:.3f}, depth rank "
+        f"corr {s1_rep['depth_rank_corr'][1]:.3f}; its Stage 2: mlp_init "
+        f"{s1_rep['stage2']['mlp_init_s']:.1f} s, median step "
+        f"{s1_rep['stage2']['step_ms_median']:.3f} ms, hand-off "
+        f"{s1_rep['stage2']['handoff_s']:.1f} s")
     log(f"[wall] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

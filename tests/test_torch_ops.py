@@ -134,7 +134,8 @@ def test_mean_knn_sq_dist():
 def test_port_imports_no_jax():
     """Every module of the port (the CLI entry points and their config
     among them, the static 2DGS path's and Stage 2's too, the skeleton
-    and the NVP warp), and chip_smoke.py, imports
+    and the NVP warp, Stage 1's pipeline, RAFT, segmentation and canonical
+    fit), and chip_smoke.py, imports
     without jax and without any module of the JAX package (in a fresh
     process)."""
     code = (
@@ -148,7 +149,8 @@ def test_port_imports_no_jax():
         "    'ops.lpips', 'preprocess.tsdf', 'models.gaussian.extract', 'ops.volume',\n"
         "    'models.fields.dyn_nerf', 'engine.model', 'engine.trainer', 'engine.losses',\n"
         "    'engine.optim', 'data.vidloader', 'convert', 'models.fields.skeleton',\n"
-        "    'models.fields.nvp')}\n"
+        "    'models.fields.nvp', 'preprocess.pipeline', 'preprocess.raft',\n"
+        "    'preprocess.segment', 'preprocess.canonical')}\n"
         "assert entry <= set(mods), sorted(entry - set(mods))\n"
         "import chip_smoke\n"
         "assert len(mods) >= 30, mods\n"

@@ -13,6 +13,10 @@ Stage-2 optimiser. Such
 arrays may share memory with live JAX buffers, so every leaf is copied.
 This module imports neither jax nor the JAX package.
 
+The shipped Stage-1 nets (``vidu4d_tpu/weights/*.npz``: RAFT-small,
+DepthNet, FeatNet, flax conv nets flattened with "/") map onto the port's
+modules by `flax_conv_net_state_dict`.
+
 Flax ``Dense`` kernels are (in, out); ``nn.Linear`` weights are (out, in),
 so kernels are transposed. Flax names the two layers of a compact ``Head``
 ``Dense_0`` (the output layer, created first) and ``Dense_1`` (the hidden
@@ -144,6 +148,43 @@ def load_flax_params_(module: nn.Module, params: Dict) -> None:
     """Copy a flax parameter tree into ``module`` (strict: every parameter
     must be matched, and shapes must agree)."""
     sd = flax_to_state_dict(params)
+    dev = next(module.parameters()).device
+    module.load_state_dict({k: v.to(dev) for k, v in sd.items()}, strict=True)
+
+
+def flax_conv_net_state_dict(module: nn.Module,
+                             flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The parameters of a flax conv net, flattened with "/" as the shipped
+    ``vidu4d_tpu/weights/*.npz`` hold them (RAFT's keys have no "params/"
+    prefix, DepthNet's and FeatNet's have), as ``module``'s state dict.
+
+    Each flax name (compact names such as ``Conv_0``, ``GroupNorm_1``,
+    ``ResBlock_2``) is renamed by the ``FLAX_NAMES`` of the module it lies
+    in (a dotted target such as ``blocks.3`` indexes a ModuleList); conv
+    kernels HWIO become OIHW weights, GroupNorm scales weights."""
+    out = {}
+    for key, arr in flat.items():
+        parts = key.split("/")
+        if parts[0] == "params":
+            parts = parts[1:]
+        mod, names = module, []
+        for p in parts[:-1]:
+            name = getattr(type(mod), "FLAX_NAMES", {}).get(p, p)
+            mod = mod.get_submodule(name)
+            names.append(name)
+        leaf, arr = parts[-1], np.array(arr, dtype=np.float32)
+        if leaf == "kernel":
+            leaf, arr = "weight", arr.transpose(3, 2, 0, 1).copy()
+        elif leaf == "scale":
+            leaf = "weight"
+        out[".".join(names + [leaf])] = torch.tensor(arr)
+    return out
+
+
+def load_flax_conv_net_(module: nn.Module, flat: Dict[str, np.ndarray]) -> None:
+    """Copy a flattened flax conv net (`flax_conv_net_state_dict`) into
+    ``module`` (strict: every parameter matched, shapes equal)."""
+    sd = flax_conv_net_state_dict(module, flat)
     dev = next(module.parameters()).device
     module.load_state_dict({k: v.to(dev) for k, v in sd.items()}, strict=True)
 

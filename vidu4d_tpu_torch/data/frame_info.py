@@ -32,6 +32,14 @@ class FrameInfo(NamedTuple):
         off = np.asarray(self.frame_offset)
         return int((off[1:] - off[:-1]).max())
 
+    @staticmethod
+    def single_video(num_frames: int) -> "FrameInfo":
+        return FrameInfo(
+            frame_offset=(0, num_frames),
+            frame_mapping=tuple(range(num_frames)),
+            frame_offset_raw=(0, num_frames),
+        )
+
     def raw_fid_to_vid(self) -> np.ndarray:
         """(N_raw,) video id of each raw frame."""
         off = np.asarray(self.frame_offset_raw)

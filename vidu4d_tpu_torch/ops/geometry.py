@@ -135,3 +135,11 @@ def so3_to_exp_map(so3: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     theta = theta[..., None]
     eye = torch.eye(3, dtype=so3.dtype, device=so3.device)
     return eye + torch.sin(theta) * V + (1.0 - torch.cos(theta)) * (V @ V)
+
+
+def rot_angle(mat: torch.Tensor) -> torch.Tensor:
+    """Rotation angle of (..., 3, 3) rotation matrices (`geometry.py:175`);
+    the cosine is clipped 1e-4 inside [-1, 1]."""
+    eps = 1e-4
+    cos = (mat[..., 0, 0] + mat[..., 1, 1] + mat[..., 2, 2] - 1.0) / 2.0
+    return torch.arccos(torch.clamp(cos, -1.0 + eps, 1.0 - eps))
