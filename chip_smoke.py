@@ -175,6 +175,29 @@ Phases (any failed check raises, so the exit code is non-zero):
      seconds, RAFT's chunk and the peak memory. Then `stage2_path` on that
      database (S2_FLAGS, full mlp_init, 1 round of 10 steps, the 512^2
      render, the gs-bob hand-off: K1 and K2 launched, no plain version).
+ 18. [stage1-train] (`stage1_train_path`): one step of each Stage-1
+     trainer (RAFT, FeatNet, DepthNet at 128^2, their default batches) on
+     the card and on the CPU from the same parameters and batch (loss,
+     gradients, updated parameters); then each trainer's `main` on the card
+     at the JAX script's default width, resolution and batch for ST_STEPS
+     steps (DepthNet on a pool of ST_POOL scenes rendered by K1): every loss
+     finite, the parameters moved, an npz with the shipped file's keys,
+     shapes and dtypes that the port's loader reads back to the trained
+     net's outputs, K1 launched once per rendered scene and nothing else;
+     both kernels against their plain versions on one make_scene render's
+     inputs (timed; no tile above the JAX tiles path's budget of 1024).
+     Prints each trainer's step ms, the ms per rendered scene and the
+     held-out scores (EPE vs LK, match accuracy vs HOG, order accuracy vs
+     the flow parallax);
+ 19. [multi-inst] (`multi_inst_path`): a small float64 Stage-2 step with
+     one instance code per video (a 2-video database) on the card vs the
+     CPU, as in phase 14; two 24 x 720 x 1280 clips of `stage1_video` with
+     different motions through `preprocess_video` into one database; Stage 2
+     --nosingle_inst at the README recipe's width (1 round of 10 steps,
+     num_inst 2), the 512^2 render and `export` of video 1 (export_0001/
+     with video 1's frames), the gs-bob --nosingle_inst hand-off (2 steps,
+     K1 and K2 launched, no plain version). Prints the step median and
+     p90, mlp_init and the peak memory.
 The last two lines are a JSON object of per-kernel results and
 {"ok": true, "device": {...}}.
 
@@ -217,6 +240,10 @@ leave only rounding); deformer parameters after the first AdamW update
 within 2 lr x multiplier (Adam's first step is ~lr * g / |g|, which flips
 sign where g is near 0), and to 1e-6 + 1e-3 of that where |g| > 1e-2
 max |g|.
+Stage-1 training step, card vs CPU: the loss within ST_LOSS_RTOL (1e-4)
+relative; each gradient within STEP_GRAD_REL_TOL * its max |g| +
+STEP_GRAD_FLOOR * the largest; the parameters after the update within 2 x
+the first learning rate + 1e-6 |p|.
 Stage 1's small clip, card vs CPU (S1_TOL, the bounds of
 tests/test_torch_preprocess_pipeline.py): annotations, crop2raw and
 is_detected equal; crops within one float16 step; flow within the RAFT
@@ -437,6 +464,34 @@ S1_SMALL = (10, 64, 64, 4096, 32, (1, 2), 32)
 S1_TOL = {"crop": 2.0 ** -10, "flow": 2e-4 + 2.0 ** -6, "share": 5e-3, "depth": 4e-3,
           "cam_rad": 2e-2, "cam_t": 2e-2, "mesh_bounds": 0.05, "chamfer": 0.02,
           "canon_t": 1e-6, "canon_rad": 0.05}
+
+# [stage1-train]: each Stage-1 trainer's main (`vidu4d_tpu_torch.preprocess.
+# train_{raft,featnet,depthnet}`) at the JAX script's default width,
+# resolution and batch (128^2; batch 8 / 4 / 8), ST_STEPS steps, DepthNet on
+# a pool of ST_POOL scenes; its K1 launches: the init batch, the pool and
+# the 4 held-out batches. One step per net on the card and on the CPU from
+# the same parameters and batch: the loss within ST_LOSS_RTOL relative,
+# each gradient within STEP_GRAD_REL_TOL of its max |g| + STEP_GRAD_FLOOR of
+# the largest (cuDNN's and the CPU's convolutions sum in other orders), the
+# parameters after the update within 2 x the first learning rate (Adam's
+# first step is ~lr * g / |g|) + 1e-6 |p|
+ST_STEPS, ST_POOL, ST_RES = 30, 16, 128
+ST_BATCH = {"raft": 8, "featnet": 4, "depthnet": 8}
+ST_LR = {"raft": 2e-4, "featnet": 3e-4, "depthnet": 3e-4}
+ST_LOSS_RTOL = 1e-4
+ST_SHIPPED = {"raft": "raft_small_synthetic.npz", "featnet": "featnet_synthetic.npz",
+              "depthnet": "depthnet_synthetic.npz"}
+# [multi-inst]: two clips of one object (stage1_video, MI_FRAMES frames at
+# S1_RES, different motions: (turn deg, drift px, seed) each) through
+# preprocess_video into one 2-video database, then Stage 2 --nosingle_inst
+# with the README recipe (S2_FLAGS: 8 x 256, 524,288 samples per step), 1
+# round of MI_ITERS steps, the 512^2 render and export of video 1, and the
+# gs-bob --nosingle_inst hand-off
+MI_FRAMES, MI_ITERS = 24, 10
+MI_MOTIONS = ((3.0, 4.0, 2), (-4.0, -3.0, 3))
+MI_FLAGS = (["--seqname", "multi", "--logname", "mi", "--nosingle_inst"] + S2_FLAGS[4:]).copy()
+MI_FLAGS[MI_FLAGS.index("--num_rounds") + 1] = "1"
+MI_FLAGS[MI_FLAGS.index("--iters_per_round") + 1] = str(MI_ITERS)
 
 
 def log(msg: str) -> None:
@@ -1942,9 +1997,12 @@ def static_path(tmp, rng):
     return rep, counts, check
 
 
-def stage2_small_vs_cpu(tmp, fg_motion="bob", field_type="fg", steps=2, init=None):
+def stage2_small_vs_cpu(tmp, fg_motion="bob", field_type="fg", steps=2, init=None,
+                        single_inst=True):
     """``steps`` Stage-2 steps of a small configuration (S2_SMALL, 32^2;
-    ``fg_motion``, ``field_type``) on the CPU and on the card in float64,
+    ``fg_motion``, ``field_type``; with ``single_inst`` False on a 2-video
+    database with one instance code per video) on the CPU and on the card
+    in float64,
     from the same parameters, field state, batch and draws: every loss term
     and gnorm within S2_SMALL_LOSS_RTOL; each parameter's gradient within
     S2_SMALL_GRAD_REL of its max |g| + S2_SMALL_GRAD_FLOOR of the largest;
@@ -1961,14 +2019,15 @@ def stage2_small_vs_cpu(tmp, fg_motion="bob", field_type="fg", steps=2, init=Non
     from vidu4d_tpu_torch.engine.trainer import Stage2Trainer
     from vidu4d_tpu_torch.models.fields.dyn_nerf import FieldState
 
-    label = f"{field_type}-{fg_motion}"
+    label = f"{field_type}-{fg_motion}" + ("" if single_inst else "-nosingle_inst")
     run = os.path.join(tmp, f"s2small-{label}")
-    db = load_test_module("helpers").make_fake_db(run, num_vids=1, T=8, H=32, W=32)
+    db = load_test_module("helpers").make_fake_db(run, num_vids=1 if single_inst else 2, T=8,
+                                                  H=32, W=32)
     opts = {"dataroot": db, "seqname": "toy", "logroot": os.path.join(run, "logdir"),
             "data_prefix": "crop", "train_res": 32, "fg_motion": fg_motion,
             "field_type": field_type, "rgb_timefree": True, "rgb_dirfree": True,
             "num_rounds": 1, "iters_per_round": 2, "seed": 0, "learning_rate": 5e-4,
-            **S2_SMALL}
+            "single_inst": single_inst, **S2_SMALL}
     f64 = lambda d, dev: {k: (v.double() if v.is_floating_point() else v).to(dev)
                           for k, v in d.items()}
     cpu = Stage2Trainer({**opts, "logname": "small_cpu"}, "cpu")
@@ -2004,6 +2063,8 @@ def stage2_small_vs_cpu(tmp, fg_motion="bob", field_type="fg", steps=2, init=Non
         m_gpu = gpu.train_step(f64(batch, "cuda"), f64(draws, "cuda"))
         torch.cuda.synchronize()
         terms = S2_TERMS if (fg_motion, field_type) == ("bob", "fg") else set(m_cpu)
+        if not single_inst and cpu.num_inst != 2:
+            raise AssertionError(f"stage-2 small step {label}: num_inst {cpu.num_inst}")
         if set(m_cpu) != terms | {"total", "gnorm"} or set(m_gpu) != set(m_cpu):
             raise AssertionError(f"stage-2 small step {label} terms: {sorted(m_cpu)} / "
                                  f"{sorted(m_gpu)}")
@@ -2035,7 +2096,7 @@ def stage2_small_vs_cpu(tmp, fg_motion="bob", field_type="fg", steps=2, init=Non
                                      f"{float(diff.max())}")
         for tr in (cpu, gpu):
             tr.current_steps += 1
-    tag = "" if (fg_motion, field_type) == ("bob", "fg") else f" {label}"
+    tag = "" if label == "fg-bob" else f" {label}"
     log(f"[stage2 small step cpu-vs-gpu float64{tag}] {json.dumps(worst)} "
         f"(loss: max relative difference; grad, param: max share of their bounds; "
         f"{len(m_cpu) - 2} terms)")
@@ -2044,7 +2105,7 @@ def stage2_small_vs_cpu(tmp, fg_motion="bob", field_type="fg", steps=2, init=Non
 
 def stage2_path(tmp, flags=S2_FLAGS, rounds=S2_ROUNDS, terms=S2_TERMS, tag="stage2",
                 handoff_motion="gs-bob", export_reanimate=False, database=None,
-                iters=S2_ITERS):
+                iters=S2_ITERS, inst_id=0, handoff_flags=()):
     """A Stage-2 recipe on the card through the port's entry points (``flags``:
     S2_FLAGS, the README's, or S2C_FLAGS, comp + skel-quad), in a run
     directory holding make_fake_db(T=16) at 256^2: `Stage2Trainer` with the
@@ -2059,7 +2120,10 @@ def stage2_path(tmp, flags=S2_FLAGS, rounds=S2_ROUNDS, terms=S2_TERMS, tag="stag
     ``export_reanimate`` then `reanimate.main` of that Stage 3 with the
     Stage-2 export's motion at S2C_REANIMATE_RES^2. Logs under ``[tag]``.
     ``database``: a database to train on (linked into the run directory)
-    in place of make_fake_db's; ``iters``: steps per round.
+    in place of make_fake_db's; ``iters``: steps per round; ``inst_id``:
+    the video the render shows (and, when not 0, `export.main
+    --inst_id` of it: export_<inst_id>/ with that video's frames, no
+    kernel launch); ``handoff_flags``: more flags of the hand-off.
     Returns (report, kernel launches of the Stage-2 training, of the
     hand-off, of the reanimation or None)."""
     import torch
@@ -2110,6 +2174,8 @@ def stage2_path(tmp, flags=S2_FLAGS, rounds=S2_ROUNDS, terms=S2_TERMS, tag="stag
         opts.pop("device")
         config.save_config(opts)
         trainer = s2.Stage2Trainer(opts, "cuda")
+        rep["num_inst"] = trainer.num_inst
+        rep["frame_offset_raw"] = [int(x) for x in trainer.frame_info.frame_offset_raw]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         info = trainer.mlp_init()
@@ -2206,19 +2272,46 @@ def stage2_path(tmp, flags=S2_FLAGS, rounds=S2_ROUNDS, terms=S2_TERMS, tag="stag
         t0 = time.perf_counter()
         out = render_cli.main(s2_flag + ["--render_res", str(S2_RENDER_RES), "--freeze_id", "0",
                                          "--num_frames", str(S2_RENDER_FRAMES),
-                                         "--viewpoint", "ref"])
+                                         "--viewpoint", "ref", "--inst_id", str(inst_id)])
         torch.cuda.synchronize()
         rep_r = {"render_s": time.perf_counter() - t0,
                  "chunks_per_frame": -(-S2_RENDER_RES ** 2 // s2.RENDER_CHUNK),
-                 "cover": [float((m > 0.01).mean()) for m in out["mask"]]}
+                 "cover": [float((m > 0.01).mean()) for m in out["mask"]],
+                 "inst_id": inst_id}
         finite = all(np.isfinite(v).all() for v in out.values())
-        if (not finite or out["rgb"].shape != (S2_RENDER_FRAMES, S2_RENDER_RES, S2_RENDER_RES, 3)
+        if (not os.path.isdir(os.path.join(save_dir, "renderings_%04d" % inst_id, "ref"))
+                or not finite
+                or out["rgb"].shape != (S2_RENDER_FRAMES, S2_RENDER_RES, S2_RENDER_RES, 3)
                 or min(rep_r["cover"]) <= 0):
             raise AssertionError(f"{tag} render: finite {finite}, {rep_r}")
         log(f"[{tag} render] {json.dumps(rep_r)}")
         rep.update(rep_r)
         del out
         torch.cuda.empty_cache()
+
+        if inst_id:
+            # the canonical mesh, video inst_id's motion and mesh sequence
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            exp_dir = export_cli.main(s2_flag + ["--inst_id", str(inst_id),
+                                                 "--export_mesh_stride", "8"])
+            rep["export_s"] = time.perf_counter() - t0
+            with open(os.path.join(exp_dir, "motion.json")) as f:
+                motion = json.load(f)
+            offsets = rep["frame_offset_raw"]
+            n_frames = offsets[inst_id + 1] - offsets[inst_id]
+            objs = sorted(f for f in os.listdir(exp_dir) if f.startswith("fg-"))
+            rep["export"] = {"dir": os.path.basename(exp_dir),
+                             "frames": len(motion["field2cam"]["quat"]), "video_frames": n_frames,
+                             "objs": [objs[0], objs[-1], len(objs)] if objs else [],
+                             "launches": dict(kernels.COUNTS)}
+            if (os.path.basename(exp_dir) != "export_%04d" % inst_id
+                    or len(motion["field2cam"]["quat"]) != n_frames
+                    or objs[0] != "fg-%05d.obj" % offsets[inst_id]
+                    or not np.isfinite(np.asarray(motion["field2cam"]["trans"])).all()
+                    or any(kernels.COUNTS.values())):
+                raise AssertionError(f"{tag} export: {rep['export']}")
+            log(f"[{tag} export] {json.dumps({'s': rep['export_s'], **rep['export']})}")
 
         if export_reanimate:
             # the canonical mesh and the motion with the skeleton's joint angles
@@ -2255,13 +2348,15 @@ def stage2_path(tmp, flags=S2_FLAGS, rounds=S2_ROUNDS, terms=S2_TERMS, tag="stag
                              "--iters_per_round", str(S2_HANDOFF_STEPS), "--imgs_per_gpu",
                              "1", "--pixels_per_image", "-1", "--learning_rate", "3e-5",
                              "--seed", "0", "--gs_init_mesh", geo,
-                             "--load_path", os.path.join(save_dir, "ckpt_latest.pth")])
+                             "--load_path", os.path.join(save_dir, "ckpt_latest.pth"),
+                             *handoff_flags])
         torch.cuda.synchronize()
         handoff = dict(kernels.COUNTS)
         restore()
         rep["handoff_s"] = time.perf_counter() - t0
         s3_dir = os.path.abspath(s3.save_dir)
         rep["handoff_alive"] = int(s3.surfels.num_alive())
+        rep["handoff_num_inst"] = s3.deformer.num_inst
         del s3
         bad = [k for m in s3_metrics for k, v in m.items() if not np.isfinite(v)]
         if (len(s3_metrics) != S2_HANDOFF_STEPS or bad or handoff["tile_forward"] < 1
@@ -2269,7 +2364,10 @@ def stage2_path(tmp, flags=S2_FLAGS, rounds=S2_ROUNDS, terms=S2_TERMS, tag="stag
                 or handoff["tile_backward_plain"]):
             raise AssertionError(f"{tag} hand-off: {len(s3_metrics)} steps, non-finite {bad}, "
                                  f"launches {handoff}")
-        log(f"[{tag} handoff] {json.dumps({'s': rep['handoff_s'], 'motion': handoff_motion, 'alive': rep['handoff_alive'], 'launches': handoff, 'losses': s3_metrics[-1]})}")
+        rep_h = {"s": rep["handoff_s"], "motion": handoff_motion, "flags": list(handoff_flags),
+                 "num_inst": rep["handoff_num_inst"], "alive": rep["handoff_alive"],
+                 "launches": handoff, "losses": s3_metrics[-1]}
+        log(f"[{tag} handoff] {json.dumps(rep_h)}")
         torch.cuda.empty_cache()
 
         if export_reanimate:
@@ -2299,12 +2397,13 @@ def stage2_path(tmp, flags=S2_FLAGS, rounds=S2_ROUNDS, terms=S2_TERMS, tag="stag
     return rep, s2_counts, handoff, reanimate_counts
 
 
-def stage1_video(frames, h, w, n, device="cuda", seed=0):
+def stage1_video(frames, h, w, n, device="cuda", seed=0, turn_deg=S1_TURN_DEG,
+                 drift_px=S1_DRIFT_PX):
     """A synthetic video of ``frames`` frames at h x w rendered by the
     port (K1 on the card): ``n`` opaque surfels tangent to an ellipsoid
     shell (S1_AXES at S1_DEPTH, colours a texture of the object's own
-    coordinates), turning S1_TURN_DEG per frame about a tilted axis and
-    drifting S1_DRIFT_PX (scaled by w / 1280) per frame, over a procedural
+    coordinates), turning ``turn_deg`` per frame about a tilted axis and
+    drifting ``drift_px`` (scaled by w / 1280) per frame, over a procedural
     background panning S1_PAN_PX (scaled) per frame; the camera is the
     pipeline's raw one (focal max(h, w), centred). Returns (frames
     (T, h, w, 3) float32, ground-truth masks (alpha > 0.5) and depths
@@ -2341,10 +2440,10 @@ def stage1_video(frames, h, w, n, device="cuda", seed=0):
     out_f, out_m, out_d = [], [], []
     with torch.no_grad():
         for i in range(frames):
-            a = np.radians(S1_TURN_DEG * i)
+            a = np.radians(turn_deg * i)
             spin = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
             rot = tilt_m @ spin
-            centre = np.array([(-0.12 + S1_DRIFT_PX * i / 1280.0) * S1_DEPTH, 0.02, S1_DEPTH])
+            centre = np.array([(-0.12 + drift_px * i / 1280.0) * S1_DEPTH, 0.02, S1_DEPTH])
             means = pts_t @ t(rot).T + t(centre)
             quats = quaternion_mul(matrix_to_quaternion(t(rot))[None].expand(n, 4), quat_t)
             out = rasterize(means, quats, t(np.full((n, 2), sigma)), t(np.full(n, 0.9)),
@@ -2583,6 +2682,203 @@ def stage1_path(tmp):
     return rep, s1_counts, s2_counts, handoff
 
 
+def stage1_train_step_vs_cpu():
+    """One step of each Stage-1 trainer (`train_step` with its optimiser of
+    ST_STEPS steps) on the CPU and on the card from the same flax-initialised
+    parameters and the same batch at the default size: the loss, every
+    gradient and the updated parameters (the bounds of ST_LOSS_RTOL).
+    Returns the worst shares by net."""
+    import copy
+
+    import torch
+
+    from vidu4d_tpu_torch.preprocess import train_common as tc
+    from vidu4d_tpu_torch.preprocess import train_depthnet as tdp
+    from vidu4d_tpu_torch.preprocess import train_featnet as tfe
+    from vidu4d_tpu_torch.preprocess import train_raft as tra
+    from vidu4d_tpu_torch.preprocess.depthnet import DepthNet, ranking_pairs
+    from vidu4d_tpu_torch.preprocess.featnet import FeatNet
+    from vidu4d_tpu_torch.preprocess.raft import RaftSmall
+
+    rng = np.random.default_rng(7)
+    raft_batch = tra.make_batch(rng, ST_RES, ST_BATCH["raft"])
+    i1, i2, fl = tra.make_batch(rng, ST_RES, ST_BATCH["featnet"])
+    feat_batch = (i1, i2) + tfe.batch_correspondences(rng, fl, 512, ST_RES, "cpu")
+    rot = tdp.scene_rotations(torch.Generator().manual_seed(0))
+    depth_batch = tuple(x.cpu() for x in tdp.make_batch(rng, ST_RES, ST_BATCH["depthnet"],
+                                                        rot, "cuda"))
+    depth_batch += ranking_pairs(ST_BATCH["depthnet"], ST_RES * ST_RES,
+                                 torch.Generator().manual_seed(1))
+    cases = {"raft": (RaftSmall, tra, raft_batch), "featnet": (FeatNet, tfe, feat_batch),
+             "depthnet": (DepthNet, tdp, depth_batch)}
+    worst = {}
+    for name, (net, module, batch) in cases.items():
+        base = tc.flax_conv_init_(net(), torch.Generator().manual_seed(0))
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            model = copy.deepcopy(base).to(dev)
+            opt = module.make_optimizer(model, ST_STEPS, ST_LR[name])
+            out = module.train_step(model, opt, *[x.to(dev) for x in batch])
+            loss = out[0] if isinstance(out, tuple) else out
+            runs[dev] = (float(loss), {k: p.grad.cpu() for k, p in model.named_parameters()},
+                         {k: p.detach().cpu() for k, p in model.named_parameters()},
+                         opt.schedule(0))
+        torch.cuda.synchronize()
+        (l_c, g_c, p_c, lr0), (l_g, g_g, p_g, _) = runs["cpu"], runs["cuda"]
+        floor = STEP_GRAD_FLOOR * max(float(g.abs().max()) for g in g_c.values())
+        rep = {"loss": [l_c, l_g], "loss_rel": abs(l_g - l_c) / abs(l_c), "grad": 0.0,
+               "param": 0.0, "lr0": lr0}
+        bad = []
+        for k in g_c:
+            err = float((g_g[k] - g_c[k]).abs().max())
+            bound = STEP_GRAD_REL_TOL * float(g_c[k].abs().max()) + floor
+            rep["grad"] = max(rep["grad"], err / bound)
+            pbound = 2 * lr0 + 1e-6 * p_c[k].abs()
+            rep["param"] = max(rep["param"], float(((p_g[k] - p_c[k]).abs() / pbound).max()))
+            if err > bound or ((p_g[k] - p_c[k]).abs() > pbound).any():
+                bad.append(k)
+        if not np.isfinite(l_c) or rep["loss_rel"] > ST_LOSS_RTOL or bad:
+            raise AssertionError(f"stage1-train step cpu-vs-gpu {name}: {rep}, {bad[:5]}")
+        worst[name] = rep
+    log(f"[stage1-train step cpu-vs-gpu {ST_RES}^2] {json.dumps(worst)} (loss_rel: relative "
+        f"difference; grad, param: max share of their bounds)")
+    return worst
+
+
+def stage1_train_path(tmp, rng):
+    """[stage1-train]: `stage1_train_step_vs_cpu`, then each trainer's
+    `main` on the card at ST_RES^2 with its default batch for ST_STEPS steps
+    (DepthNet on a pool of ST_POOL scenes rendered by K1): every loss
+    finite, the parameters moved, the npz with the shipped file's keys,
+    shapes and dtypes, read back by the port's loader to the trained net's
+    outputs; the launches: K1 once per rendered scene (the init batch, the
+    pool, the 4 held-out batches), no K2, no plain version; then both
+    kernels against their plain versions on the inputs of one make_scene
+    render (timed). Returns (report, launches, kernel check)."""
+    import torch
+
+    from vidu4d_tpu_torch import kernels
+    from vidu4d_tpu_torch.ops.rasterize import api
+    from vidu4d_tpu_torch.preprocess import train_depthnet as tdp
+    from vidu4d_tpu_torch.preprocess import train_featnet as tfe
+    from vidu4d_tpu_torch.preprocess import train_raft as tra
+    from vidu4d_tpu_torch.preprocess.layers import WEIGHTS_DIR, load_net
+
+    stage1_train_step_vs_cpu()
+    out_dir = os.path.join(tmp, "stage1-train")
+    x1 = torch.rand((2, 3, ST_RES, ST_RES), generator=torch.Generator().manual_seed(3)).cuda()
+    x2 = torch.rand((2, 3, ST_RES, ST_RES), generator=torch.Generator().manual_seed(4)).cuda()
+    apply = {"raft": lambda m: m(x1, x2), "featnet": lambda m: m(x1),
+             "depthnet": lambda m: m(x1)}
+    rep = {}
+    kernels.reset_counts()
+    for name, module, extra in (("raft", tra, []), ("featnet", tfe, []),
+                                ("depthnet", tdp, ["--pool", str(ST_POOL)])):
+        path = os.path.join(out_dir, ST_SHIPPED[name])
+        t0 = time.perf_counter()
+        res = module.main(["--steps", str(ST_STEPS), "--res", str(ST_RES), "--batch",
+                           str(ST_BATCH[name]), "--out", path, "--device", "cuda", *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        model = res.pop("model")
+        with np.load(os.path.join(WEIGHTS_DIR, ST_SHIPPED[name])) as a, np.load(path) as b:
+            same_layout = a.files == b.files and all(
+                a[k].shape == b[k].shape and a[k].dtype == b[k].dtype for k in a.files)
+        back = load_net(type(model)(), path, "cuda")
+        with torch.no_grad():
+            reread = torch.equal(apply[name](model.eval()), apply[name](back))
+        losses = np.asarray(res["loss"])
+        rep[name] = {k: v for k, v in res.items() if k not in ("loss", "epe", "step_ms",
+                                                                "render_ms", "out")}
+        rep[name].update(wall_s=wall, loss_first_last=[float(losses[0]), float(losses[-1])],
+                         step_ms_median=float(np.median(res["step_ms"])),
+                         step_ms_p90=float(np.percentile(res["step_ms"], 90)),
+                         same_layout=same_layout, reread=reread)
+        if name == "depthnet":
+            rep[name]["render_ms_median"] = float(np.median(res["render_ms"]))
+        if (not np.isfinite(losses).all() or len(losses) != ST_STEPS
+                or not res["param_change"] > 0 or not same_layout or not reread):
+            raise AssertionError(f"stage1-train {name}: {rep[name]}")
+        del model, back
+    launches = dict(kernels.COUNTS)
+    scenes = ST_BATCH["depthnet"] + ST_POOL + 4 * ST_BATCH["depthnet"]
+    rep["scenes_rendered"] = scenes
+    if (launches["tile_forward"] != scenes or launches["tile_backward"]
+            or launches["tile_forward_plain"] or launches["tile_backward_plain"]):
+        raise AssertionError(f"stage1-train launches {launches}, expected {scenes} K1")
+    log(f"[stage1-train] {json.dumps(rep)} launches {json.dumps(launches)}")
+
+    # K1 (and K2 on random cotangents) against the plain versions on the
+    # inputs of one make_scene render at ST_RES^2
+    kept, orig = {}, api.composite_batch
+
+    def composite(prepared, *a, **kw):
+        kept.update({k: prepared[k].detach().clone() if torch.is_tensor(prepared[k])
+                     else prepared[k] for k in KERNEL_INPUTS})
+        return orig(prepared, *a, **kw)
+
+    api.composite_batch = composite
+    try:
+        tdp.make_scene(np.random.default_rng(11), ST_RES,
+                       tdp.scene_rotations(torch.Generator().manual_seed(0)), "cuda")
+    finally:
+        api.composite_batch = orig
+    check = compare_kernels(kept, rng, f"stage1-train make_scene {ST_RES}^2", timed=True)
+    if check["max_tile"] > 1024:
+        raise AssertionError(f"make_scene: a tile holds {check['max_tile']} entries, above "
+                             "the JAX tiles path's budget of 1024")
+    torch.cuda.empty_cache()
+    return rep, launches, check
+
+
+def multi_inst_path(tmp):
+    """[multi-inst]: the small float64 Stage-2 step with one instance code
+    per video on the card vs the CPU (`stage2_small_vs_cpu`); two clips of
+    MI_FRAMES x S1_RES (MI_MOTIONS) through `preprocess_video` (segment
+    "auto", the defaults) into one database with `write_config`, every
+    file of the contract; then `stage2_path` with MI_FLAGS (--nosingle_inst:
+    num_inst 2) on it: full mlp_init, 1 round of MI_ITERS steps, the render
+    and export of video 1 (--inst_id 1), the gs-bob --nosingle_inst
+    hand-off (its deformer's num_inst 2, K1 and K2 launched, no plain
+    version). Returns (report, Stage-2 launches, hand-off launches)."""
+    import torch
+
+    from vidu4d_tpu_torch.preprocess.pipeline import preprocess_video, write_config
+
+    stage2_small_vs_cpu(tmp, single_inst=False)
+    db = os.path.join(tmp, "multi", "database")
+    rep = {"clips": []}
+    for i, (turn, drift, seed) in enumerate(MI_MOTIONS):
+        t0 = time.perf_counter()
+        frames, _, _ = stage1_video(MI_FRAMES, *S1_RES, S1_SURFELS, seed=seed, turn_deg=turn,
+                                    drift_px=drift)
+        clip = {"turn_deg": turn, "drift_px": drift, "render_s": time.perf_counter() - t0}
+        stats = {}
+        t0 = time.perf_counter()
+        preprocess_video(frames, db, f"multi-{i:04d}", masks=None, segment_backend="auto",
+                         device="cuda", stats=stats)
+        torch.cuda.synchronize()
+        clip["preprocess_s"] = time.perf_counter() - t0
+        clip["seed"] = stats["seed"]
+        check_stage1_files(db, stage1_files(f"multi-{i:04d}", MI_FRAMES, S1_CROP, S1_DELTAS))
+        rep["clips"].append(clip)
+        del frames
+    write_config(db, "multi")
+    log(f"[multi-inst stage1] {json.dumps(rep)}")
+    torch.cuda.empty_cache()
+    s2_rep, s2_counts, handoff, _ = stage2_path(tmp, MI_FLAGS, 1, S2_TERMS, "multi-inst",
+                                                database=db, iters=MI_ITERS, inst_id=1,
+                                                handoff_flags=("--nosingle_inst",))
+    rep.update({k: s2_rep[k] for k in ("num_inst", "handoff_num_inst", "frame_offset_raw",
+                                        "mlp_init_s", "step_ms_median", "step_ms_p90",
+                                        "peak_gib", "render_s", "export_s", "handoff_s")})
+    if (rep["num_inst"] != 2 or rep["handoff_num_inst"] != 2
+            or len(rep["frame_offset_raw"]) != 3 or any(s2_counts.values())):
+        raise AssertionError(f"multi-inst: {rep}, Stage-2 launches {s2_counts}")
+    log(f"[multi-inst] {json.dumps({k: v for k, v in rep.items() if k != 'clips'})}")
+    return rep, s2_counts, handoff
+
+
 def main() -> int:
     import torch
 
@@ -2730,6 +3026,17 @@ def main() -> int:
         stage1_small_vs_cpu(tmp)
         s1_rep, s1_counts, s1_s2_counts, s1_handoff = stage1_path(tmp)
         log(f"[stage1 wall] {time.perf_counter() - t0:.1f} s")
+
+        # [stage1-train]: the three Stage-1 trainers at their default sizes
+        t0 = time.perf_counter()
+        st_rep, st_counts, st_check = stage1_train_path(tmp, rng)
+        log(f"[stage1-train wall] {time.perf_counter() - t0:.1f} s")
+
+        # [multi-inst]: two clips -> one database -> Stage 2 --nosingle_inst
+        # -> render / export of video 1 -> the Stage-3 hand-off
+        t0 = time.perf_counter()
+        mi_rep, mi_counts, mi_handoff = multi_inst_path(tmp)
+        log(f"[multi-inst wall] {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2769,7 +3076,16 @@ def main() -> int:
          # Stage 1 (preprocess_video on the 720p video) runs no tile kernel;
          # Stage 2 on its database neither, the hand-off to Stage 3 both
          "stage1_launches": s1_counts[name], "stage1_stage2_launches": s1_s2_counts[name],
-         "stage1_handoff_launches": s1_handoff[name]}
+         "stage1_handoff_launches": s1_handoff[name],
+         # the three Stage-1 trainers (DepthNet's make_scene renders: K1
+         # only); the kernels on one make_scene render's inputs
+         "stage1_train_launches": st_counts[name],
+         "stage1_train_max_abs_err": st_check[f"{key}_max_abs_err"],
+         "stage1_train_ms": st_check[f"{key}_ms"],
+         "stage1_train_plain_ms": st_check[f"{key}_plain_ms"],
+         "stage1_train_bound_ms": st_check["bounds"][name]["bound_ms"],
+         # Stage 2 --nosingle_inst on the 2-video database, its hand-off
+         "multi_inst_launches": mi_counts[name], "multi_inst_handoff_launches": mi_handoff[name]}
         for name, key, replaces in (
             ("tile_forward", "fwd", "vidu4d_tpu/ops/rasterize/pallas_kernel.py:111"),
             ("tile_backward", "bwd", "vidu4d_tpu/ops/rasterize/pallas_backward.py:95"))
@@ -2813,7 +3129,19 @@ def main() -> int:
         f"corr {s1_rep['depth_rank_corr'][1]:.3f}; its Stage 2: mlp_init "
         f"{s1_rep['stage2']['mlp_init_s']:.1f} s, median step "
         f"{s1_rep['stage2']['step_ms_median']:.3f} ms, hand-off "
-        f"{s1_rep['stage2']['handoff_s']:.1f} s")
+        f"{s1_rep['stage2']['handoff_s']:.1f} s; stage-1 training at {ST_RES}^2: step "
+        f"{st_rep['raft']['step_ms_median']:.3f} / {st_rep['featnet']['step_ms_median']:.3f} / "
+        f"{st_rep['depthnet']['step_ms_median']:.3f} ms (raft / featnet / depthnet), "
+        f"{st_rep['depthnet']['render_ms_median']:.3f} ms per scene, held-out EPE "
+        f"{st_rep['raft']['epe_raft']:.3f} px (lk {st_rep['raft']['epe_lk']:.3f}), match acc "
+        f"{st_rep['featnet']['match_acc_featnet']:.3f} (hog "
+        f"{st_rep['featnet']['match_acc_hog']:.3f}), order acc "
+        f"{st_rep['depthnet']['order_acc']:.3f} (flow parallax "
+        f"{st_rep['depthnet']['flow_parallax_order_acc']:.3f}); multi-inst (2 x {MI_FRAMES} "
+        f"frames): preprocess {mi_rep['clips'][0]['preprocess_s']:.1f} + "
+        f"{mi_rep['clips'][1]['preprocess_s']:.1f} s, mlp_init {mi_rep['mlp_init_s']:.1f} s, "
+        f"median step {mi_rep['step_ms_median']:.3f} ms (p90 {mi_rep['step_ms_p90']:.3f}), "
+        f"peak {mi_rep['peak_gib']:.2f} GiB, hand-off {mi_rep['handoff_s']:.1f} s")
     log(f"[wall] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

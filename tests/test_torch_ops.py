@@ -150,7 +150,9 @@ def test_port_imports_no_jax():
         "    'models.fields.dyn_nerf', 'engine.model', 'engine.trainer', 'engine.losses',\n"
         "    'engine.optim', 'data.vidloader', 'convert', 'models.fields.skeleton',\n"
         "    'models.fields.nvp', 'preprocess.pipeline', 'preprocess.raft',\n"
-        "    'preprocess.segment', 'preprocess.canonical')}\n"
+        "    'preprocess.segment', 'preprocess.canonical', 'preprocess.train_raft',\n"
+        "    'preprocess.train_featnet', 'preprocess.train_depthnet',\n"
+        "    'preprocess.train_common')}\n"
         "assert entry <= set(mods), sorted(entry - set(mods))\n"
         "import chip_smoke\n"
         "assert len(mods) >= 30, mods\n"

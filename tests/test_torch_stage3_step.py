@@ -131,7 +131,7 @@ def test_pair_sampler_matches_pair_batcher(tmp_path):
 
 
 @pytest.mark.parametrize("bad", [
-    {"gs_init_ply": "point_cloud.ply"}, {"single_inst": False},
+    {"gs_init_ply": "point_cloud.ply"},
     {"fg_motion": "gs-dense"}, {"pixels_per_image": 16}, {"ngpu": 2},
     {"raster_impl": "tiles"}, {"raster_tile": 8},
 ])
@@ -139,6 +139,28 @@ def test_unported_options_raise(tmp_path, bad):
     db = make_fake_db(tmp_path, num_vids=1, T=8, H=16, W=16)
     with pytest.raises(NotImplementedError):
         TTrainer({**_opts(db, tmp_path), **bad}, "cpu")
+
+
+def test_nosingle_inst_trainer_takes_a_step(tmp_path):
+    """--nosingle_inst (one instance code per video) builds on a 2-video
+    database and takes a step of batches from both videos: finite, the
+    surfels moved."""
+    from vidu4d_tpu_torch.models.fields.time_mlp import init_intrinsics_base_params
+
+    db = make_fake_db(tmp_path, num_vids=2, T=8, H=16, W=16)
+    tt = TTrainer({**_opts(db, tmp_path), "train_res": 16, "single_inst": False,
+                   "gs_capacity": 256, "gs_init_samples": 200, "imgs_per_gpu": 4}, "cpu")
+    assert tt.deformer.num_inst == 2
+    prior = np.tile(np.array([19.2, 19.2, 8.0, 8.0], np.float32), (18, 1))
+    init_intrinsics_base_params(tt.deformer.intrinsics, prior, tt.frame_info)
+    with torch.no_grad():  # move the random cloud 0.5 in front of the camera
+        tt.deformer.camera_mlp.trans_head.out.bias[2] += 0.5
+    xyz0 = tt.surfels.params.xyz.detach().clone()
+    batch = tt._next_batch()
+    assert set(n(batch["dataid"]).tolist()) == {0, 1}
+    m = tt.train_step(batch)
+    assert all(np.isfinite(float(v)) for v in m.values())
+    assert not torch.equal(xyz0, tt.surfels.params.xyz.detach())
 
 
 def test_trainer_step_runs_on_its_own_state(tmp_path):

@@ -15,7 +15,7 @@ This module imports neither jax nor the JAX package.
 
 The shipped Stage-1 nets (``vidu4d_tpu/weights/*.npz``: RAFT-small,
 DepthNet, FeatNet, flax conv nets flattened with "/") map onto the port's
-modules by `flax_conv_net_state_dict`.
+modules by `flax_conv_net_state_dict`, and back by `flax_conv_net_flat`.
 
 Flax ``Dense`` kernels are (in, out); ``nn.Linear`` weights are (out, in),
 so kernels are transposed. Flax names the two layers of a compact ``Head``
@@ -179,6 +179,34 @@ def flax_conv_net_state_dict(module: nn.Module,
             leaf = "weight"
         out[".".join(names + [leaf])] = torch.tensor(arr)
     return out
+
+
+def flax_conv_net_flat(module: nn.Module, prefix: str = "") -> Dict[str, np.ndarray]:
+    """The inverse of `flax_conv_net_state_dict`: ``module``'s parameters as
+    the flat flax dict of the shipped ``.npz`` files, keys joined with "/"
+    after ``prefix`` ("params/" for DepthNet and FeatNet, "" for RAFT), in
+    sorted order; OIHW weights become HWIO kernels, GroupNorm weights
+    scales. Every value is a float32 numpy copy."""
+    out = {}
+
+    def walk(mod: nn.Module, path: list) -> None:
+        back = {v: k for k, v in getattr(type(mod), "FLAX_NAMES", {}).items()}
+        for name, child in mod.named_children():
+            if isinstance(child, nn.ModuleList):
+                for i, sub in enumerate(child):
+                    walk(sub, path + [back.get(f"{name}.{i}", f"{name}.{i}")])
+            else:
+                walk(child, path + [back.get(name, name)])
+        for leaf, p in mod.named_parameters(recurse=False):
+            arr = p.detach().cpu().numpy().astype(np.float32, copy=True)
+            if isinstance(mod, nn.Conv2d) and leaf == "weight":
+                leaf, arr = "kernel", arr.transpose(2, 3, 1, 0).copy()
+            elif isinstance(mod, nn.GroupNorm) and leaf == "weight":
+                leaf = "scale"
+            out[prefix + "/".join(path + [leaf])] = arr
+
+    walk(module, [])
+    return dict(sorted(out.items()))
 
 
 def load_flax_conv_net_(module: nn.Module, flat: Dict[str, np.ndarray]) -> None:

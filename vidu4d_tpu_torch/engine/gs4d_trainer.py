@@ -99,7 +99,6 @@ def check_supported(opts: Dict) -> None:
         (o.get("raster_tile", 16) != 16, "raster_tile != 16"),
         (o.get("pixels_per_image", -1) != -1, "pixels_per_image != -1"),
         (bool(o.get("gs_init_ply")), "gs_init_ply (the JAX trainer ignores it)"),
-        (not o.get("single_inst", True), "single_inst=False"),
     ]
     missing = [what for bad, what in unsupported if bad]
     if missing:
@@ -232,6 +231,7 @@ class Stage3Trainer:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.deformer = GaussianDeformer(
             self.frame_info, fg_motion=opts.get("fg_motion", "gs-bob")[3:],
+            num_inst=1 if opts.get("single_inst", True) else self.frame_info.num_vids,
             learnable_bg=opts.get("gs_learnable_bg", True), device=self.device,
             generator=gen,
         )

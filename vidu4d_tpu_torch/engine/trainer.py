@@ -76,7 +76,6 @@ def check_supported(opts: Dict) -> None:
     o = opts
     unsupported = [
         ((o.get("ngpu", 1) or 1) > 1, "ngpu>1 (multi-GPU)"),
-        (not o.get("single_inst", True), "single_inst=False"),
     ]
     missing = [what for bad, what in unsupported if bad]
     if missing:
@@ -122,7 +121,8 @@ class Stage2Trainer:
         self.rt_scaled = prior.copy()
         self.rt_scaled[:, :3, 3] *= 0.1
 
-        self.num_inst = 1
+        # one instance code per video with --nosingle_inst (`trainer.py:88`)
+        self.num_inst = 1 if opts.get("single_inst", True) else self.frame_info.num_vids
         self.model = DvrModel(
             self.frame_info, field_type=opts.get("field_type", "fg"),
             fg_motion=opts.get("fg_motion", "bob"), num_inst=self.num_inst,

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,8 +42,13 @@ def adjusted_num_freq_t(frame_info: FrameInfo, num_freq_t: int) -> int:
 
 
 class InstEmbedding(nn.Module):
-    """Learnable per-instance code (`embeddings.py:57`); the instance-swap
-    regularizer is not on the Stage-3 path and is not ported."""
+    """Learnable per-instance code with the instance-swap regulariser
+    (`embeddings.py:57`): with ``beta_prob`` > 0 and ``swap`` = (random ids
+    in [0, num_inst), uniforms in [0, 1)), each of inst_id's shape, an id
+    is replaced by its random id where its uniform is below ``beta_prob``.
+    No caller passes ``beta_prob`` > 0 (the JAX package computes it in
+    `progress_schedule` and passes it to no module), so the swap is inert
+    on every path, as in JAX."""
 
     def __init__(self, num_inst: int, inst_channels: int, device=None):
         super().__init__()
@@ -51,9 +56,13 @@ class InstEmbedding(nn.Module):
         self.mapping = nn.Parameter(
             torch.randn(num_inst, inst_channels, device=device))
 
-    def forward(self, inst_id: torch.Tensor) -> torch.Tensor:
+    def forward(self, inst_id: torch.Tensor, beta_prob: float = 0.0,
+                swap: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
         if self.num_inst == 1:
             inst_id = torch.zeros_like(inst_id)
+        elif beta_prob > 0.0 and swap is not None:
+            rand_id, u = swap
+            inst_id = torch.where(u < beta_prob, rand_id, inst_id)
         return self.mapping[inst_id.long()]
 
     def mean_embedding(self) -> torch.Tensor:

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -75,11 +75,17 @@ class CondMLP(nn.Module):
         self.mlp = BaseMLP(in_channels + self.inst_ch, depth, width, out_channels,
                            skips, final_act, device=device)
 
-    def forward(self, feat: torch.Tensor, inst_id: torch.Tensor) -> torch.Tensor:
-        """feat (M, ..., C); inst_id (M,)."""
+    def forward(self, feat: torch.Tensor, inst_id: Optional[torch.Tensor] = None,
+                beta_prob: float = 0.0, swap=None) -> torch.Tensor:
+        """feat (M, ..., C); inst_id (M,), or None for the mean instance's
+        code (`mlp.py:72-80`); ``beta_prob`` / ``swap``: `InstEmbedding`'s
+        instance swap."""
         if self.inst_ch > 0:
-            code = self.inst_embedding(inst_id)
-            code = code.reshape(code.shape[:1] + (1,) * (feat.dim() - 2) + (-1,))
+            if inst_id is None:
+                code = self.inst_embedding.mean_embedding()
+            else:
+                code = self.inst_embedding(inst_id, beta_prob=beta_prob, swap=swap)
+                code = code.reshape(code.shape[:1] + (1,) * (feat.dim() - 2) + (-1,))
             code = code.expand(feat.shape[:-1] + (self.inst_ch,))
             feat = torch.cat([feat, code], dim=-1)
         return self.mlp(feat)

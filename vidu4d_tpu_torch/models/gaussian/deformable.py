@@ -38,10 +38,13 @@ from vidu4d_tpu_torch.ops.rasterize.tile_backward import composite_batch, prepar
 class GaussianDeformer(nn.Module):
     """Warp + camera + intrinsics MLPs driving the surfel cloud."""
 
-    def __init__(self, frame_info: FrameInfo, fg_motion: str = "bob",
+    def __init__(self, frame_info: FrameInfo, fg_motion: str = "bob", num_inst: int = 1,
                  learnable_bg: bool = True, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        # the instance count of the run (`deformable.py:47`); no module
+        # reads it: the warps and MLPs condition on every video
+        self.num_inst = num_inst
         self.warp = warp_module(fg_motion, frame_info, device=device)
         self.camera_mlp = CameraMLP(frame_info, device=device)
         self.intrinsics = IntrinsicsMLP(frame_info, device=device)

@@ -1,17 +1,20 @@
 """Learned dense registration descriptors, the DINOv2 slot
-(`vidu4d_tpu/preprocess/featnet.py`), inference: a small conv encoder
-trained in-repo with a dense InfoNCE objective. Layout NCHW; the weights
-are the shipped flax ones (`load_featnet`).
+(`vidu4d_tpu/preprocess/featnet.py`): a small conv encoder trained in-repo
+with a dense InfoNCE objective (`info_nce_pair`), its held-out score
+(`match_accuracy`) and its weights file. Layout NCHW; the weights are the
+shipped flax ones (`load_featnet`), written back by `save_weights`.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vidu4d_tpu_torch.convert import flax_conv_net_flat
 from vidu4d_tpu_torch.preprocess.layers import SameConv2d, load_net, weights_path
 
 WEIGHTS_ENV, WEIGHTS_FILE = "VIDU4D_FEATNET_NPZ", "featnet_synthetic.npz"
@@ -55,6 +58,42 @@ def sample_features(feat: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     wy = (y - y0)[:, None]
     return (feat[y0, x0] * (1 - wx) * (1 - wy) + feat[y0, x0 + 1] * wx * (1 - wy)
             + feat[y0 + 1, x0] * (1 - wx) * wy + feat[y0 + 1, x0 + 1] * wx * wy)
+
+
+def _unit(f: torch.Tensor) -> torch.Tensor:
+    return f / torch.clamp(torch.linalg.vector_norm(f, dim=-1, keepdim=True), min=1e-6)
+
+
+def info_nce_pair(feat1: torch.Tensor, feat2: torch.Tensor, xy1: torch.Tensor,
+                  xy2: torch.Tensor, temp: float = 0.07) -> torch.Tensor:
+    """Symmetric dense InfoNCE of one image pair (`featnet.py:73`): the
+    features (H/2, W/2, D) sampled at xy1 / xy2 (N, 2) full-resolution
+    pixels; xy1[i] must match xy2[i] against every other sampled point."""
+    f1 = _unit(sample_features(feat1, xy1))
+    f2 = _unit(sample_features(feat2, xy2))
+    logits = (f1 @ f2.T) / temp
+    return 0.5 * (torch.mean(-torch.diagonal(F.log_softmax(logits, dim=1)))
+                  + torch.mean(-torch.diagonal(F.log_softmax(logits, dim=0))))
+
+
+@torch.no_grad()
+def match_accuracy(feat1: torch.Tensor, feat2: torch.Tensor, xy1, xy2,
+                   radius_px: float = 4.0) -> float:
+    """Fraction of the xy1 points whose most similar sampled xy2 point lies
+    within ``radius_px`` of its true correspondence (`featnet.py:98`)."""
+    dev = feat1.device
+    xy1 = torch.as_tensor(np.asarray(xy1), dtype=torch.float32, device=dev)
+    xy2 = torch.as_tensor(np.asarray(xy2), dtype=torch.float32, device=dev)
+    sim = _unit(sample_features(feat1, xy1)) @ _unit(sample_features(feat2, xy2)).T
+    best = torch.argmax(sim, dim=1)
+    d = torch.linalg.vector_norm(xy2[best] - xy2, dim=-1)
+    return int((d <= radius_px).sum()) / d.numel()
+
+
+def save_weights(path: str, model: FeatNet) -> None:
+    """``model``'s weights as the shipped ``featnet_synthetic.npz`` holds
+    them (`featnet.py:111`): flax keys under "params/", ``np.savez``."""
+    np.savez(path, **flax_conv_net_flat(model, "params/"))
 
 
 def load_featnet(path: Optional[str] = None, device="cuda") -> Optional[FeatNet]:

@@ -1,20 +1,25 @@
-"""RAFT-small optical flow (`vidu4d_tpu/preprocess/raft.py`), inference.
+"""RAFT-small optical flow (`vidu4d_tpu/preprocess/raft.py`), its training
+loss (`sequence_loss`) and its weights file.
 
 Feature and context encoders at 1/8 resolution, a 4-level all-pairs
 correlation pyramid with radius-3 lookup, and a ConvGRU update iterated 12
 times (unrolled, the flow detached before each lookup). Layout NCHW; the
-weights are the shipped flax ones (`load_raft`).
+weights are the shipped flax ones (`load_raft`), written back by
+`save_weights`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+import os
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vidu4d_tpu_torch.convert import flax_conv_net_flat
 from vidu4d_tpu_torch.preprocess.layers import SameConv2d, group_norm, load_net, weights_path
 from vidu4d_tpu_torch.preprocess.ops import pixel_grid, resize_hwc
 
@@ -211,6 +216,27 @@ class RaftSmall(nn.Module):
     def _upsample(flow: torch.Tensor) -> torch.Tensor:
         """x8 bilinear (half-pixel centres) of (N, h, w, 2) flow in pixels."""
         return resize_hwc(flow * 8.0, (flow.shape[1] * 8, flow.shape[2] * 8))
+
+
+def sequence_loss(preds: List[torch.Tensor], gt: torch.Tensor,
+                  gamma: float = 0.8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RAFT's training loss (`scripts/train_raft.py:127-137`) over the flows
+    of every iteration (`RaftSmall(..., all_iters=True)`, each (N, H, W,
+    2)): sum_i gamma^(n-1-i) mean |pred_i - gt|, and the last iteration's
+    mean end-point error."""
+    total = 0.0
+    for i, fl in enumerate(preds):
+        total = total + gamma ** (len(preds) - i - 1) * torch.mean(torch.abs(fl - gt))
+    epe = torch.mean(torch.linalg.vector_norm(preds[-1] - gt, dim=-1))
+    return total, epe
+
+
+def save_weights(model: RaftSmall, path: str) -> None:
+    """``model``'s weights as the shipped ``raft_small_synthetic.npz`` holds
+    them (`raft.py:232`): flax keys without a prefix, ``np.savez_compressed``;
+    the directory is created."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez_compressed(path, **flax_conv_net_flat(model))
 
 
 def load_raft(path: Optional[str] = None, device="cuda") -> Optional[RaftSmall]:

@@ -164,12 +164,16 @@ def render(opts: Dict, device="cuda") -> Dict[str, np.ndarray]:
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, np.ndarray]:
     """``--logdir``: a run directory whose ``opts.json`` (the trainer's
-    option dict) is merged over the flags, for runs without an opts.log."""
+    option dict) is merged over the flags, for runs without an opts.log;
+    the render flags (``--inst_id``, ``--viewpoint``, ...) stay the command
+    line's (a trainer built by an earlier render writes them into
+    ``opts.json`` too)."""
     opts = config.parse_flags(sys.argv[1:] if argv is None else argv, config.RENDER_FLAGS)
     device = opts.pop("device")
     if opts["logdir"]:
         with open(os.path.join(opts["logdir"], "opts.json")) as f:
-            opts.update(json.load(f))
+            opts.update({k: v for k, v in json.load(f).items()
+                         if k not in config.RENDER_FLAGS})
     return render(opts, device)
 
 
