@@ -198,6 +198,25 @@ Phases (any failed check raises, so the exit code is non-zero):
      with video 1's frames), the gs-bob --nosingle_inst hand-off (2 steps,
      K1 and K2 launched, no plain version). Prints the step median and
      p90, mlp_init and the peak memory.
+ 20. [multi-gpu] (`multi_gpu_path`): data parallelism over frame pairs on
+     the one card: the main path's Stage-3 step (200k surfels, 256^2, 2
+     pairs, the 2DGS terms in the last of 3 steps) and the README's
+     Stage-2 recipe (2 steps) by 2 gloo ranks against one process on the
+     same global batch, each step from the one process's state before it
+     (within MG_STEP / MG_S2_STEP; printed beside a second run of the one
+     process against the first), the densify, opacity-reset and outlier
+     hooks fired once at the end against the one process's (MG_HOOKS), the
+     ranks' checksums equal after every step and after the hooks, 1 K1
+     and 1 K2 launch per step on each rank and no
+     plain version, both kernels against their plain versions on rank 0's
+     inputs (timed); the uneven case (3 pairs over 2 ranks, 64^2, 1 step);
+     a world-size-1 NCCL group's step bitwise the step without a group (in
+     deterministic-algorithms mode). Prints each run's step ms (median,
+     p90), host batch ms and gradient all-reduce ms per rank and peak
+     memory;
+ 21. [c1] (`c1_measure`, measurement only): K1 at 512^2 on small, distant
+     splats against `reference.py` in float64: the slab's rho2d error and
+     K1's alpha error (largest, share of pixels beyond 1/255).
 The last two lines are a JSON object of per-kernel results and
 {"ok": true, "device": {...}}.
 
@@ -492,6 +511,45 @@ MI_MOTIONS = ((3.0, 4.0, 2), (-4.0, -3.0, 3))
 MI_FLAGS = (["--seqname", "multi", "--logname", "mi", "--nosingle_inst"] + S2_FLAGS[4:]).copy()
 MI_FLAGS[MI_FLAGS.index("--num_rounds") + 1] = "1"
 MI_FLAGS[MI_FLAGS.index("--iters_per_round") + 1] = str(MI_ITERS)
+# [multi-gpu]: 2 ranks (gloo, both on the one card) against one process.
+# Stage 3: the main path's scene with MG_PAIRS pairs (4 frames), MG_STEPS
+# steps (the 2DGS terms in the last); the uneven case MG_UNEVEN (pairs,
+# resolution, surfels: 3 pairs over 2 ranks), 1 step. Stage 2: S2_FLAGS,
+# MG_S2_STEPS steps after MG_S2_SDF_ITERS SDF pretrain steps. Each step of
+# a rank starts from the one process's state before that step (the
+# one process saves its whole state after each), so every step is held to
+# the same bounds (float32, the same terms summed in another order;
+# without it a step's Adam flips, ~lr * g / |g| where g is rounding noise,
+# carry into the next, and one process drifts from itself by 1.6e-5 to
+# 1.2e-3 relative on the second step's losses and 4e-2 to 1e-1 on the
+# third, in development runs on the H100). MG_STEP: loss terms and gnorm
+# 1e-5 relative; Adam moments 1e-4 of each tensor's max |.|; grad_accum and
+# max_radii2d 1e-5 of their max; no denom slot differing; the parameters
+# within 2 x the step's learning rate x multiplier (those flips); the
+# overflow / truncated counts within MG_BOUNDARY (a splat on a span
+# boundary); alive exactly. The hooks, fired from the one process's last
+# state: the same log and alive mask, the surfel store, its moments and
+# statistics within MG_HOOKS of each tensor's max (the same inputs; 0
+# expected). Stage 2 (float64, MG_S2_STEP): the moments within 1e-5 of
+# their max and the loss terms within 3e-4 relative: `nonzero_mean` counts
+# every entry > 0, and an entry that is exactly 0 in one process can come
+# out ~1e-18 when a rank's half of the rows goes through the matmuls
+# (their blocking changes with the row count): one such entry of the 8192
+# mask entries (256 pairs x 2 x 16 px) moves that term by 1/8192 = 1.2e-4;
+# the parameters within 2 lr
+MG_RANKS, MG_PAIRS, MG_STEPS = 2, 2, 3
+MG_UNEVEN = (3, 64, 4096)
+MG_S2_STEPS, MG_S2_SDF_ITERS = 2, 200
+MG_BOUNDARY = 20
+MG_STEP = {"metrics_rel": 1e-5, "warp_mu_rel_to_max": 1e-4, "surfel_mu_rel_to_max": 1e-4,
+           "grad_accum_rel_to_max": 1e-5, "max_radii2d_rel_to_max": 1e-5,
+           "denom_slots_differing": 0, "deformer_over_2lr": 1.0, "surfel_over_2lr": 1.0,
+           "count_diff": MG_BOUNDARY}
+MG_HOOKS = {"hooks_rel_to_max": 1e-6}
+MG_S2_STEP = {"metrics_rel": 3e-4, "mu_rel_to_max": 1e-5, "param_over_2lr": 1.0}
+# [c1]: K1 at C1_RES^2 on C1_SPLATS small distant splats against
+# reference.py in float64 (measurement only)
+C1_RES, C1_SPLATS = 512, 192
 
 
 def log(msg: str) -> None:
@@ -2879,6 +2937,623 @@ def multi_inst_path(tmp):
     return rep, s2_counts, handoff
 
 
+# ----------------------------------------------------------------------
+# [multi-gpu]: data parallelism over frame pairs (2 gloo ranks on one card)
+# ----------------------------------------------------------------------
+
+
+def mg_save_state(trainer, batch, path):
+    """A Stage-3 trainer's deformer and surfel store and a batch, as CPU
+    tensors in one pickle (every run of the phase starts from it)."""
+    import pickle
+
+    cpu = lambda t: t.detach().cpu()
+    s = trainer.surfels
+    with open(path, "wb") as f:
+        pickle.dump({"opts": trainer.opts,
+                     "deformer": {k: cpu(v) for k, v in trainer.deformer.state_dict().items()},
+                     "surfels": [cpu(x) for x in (*s.params, *s[1:])],
+                     "batch": {k: cpu(v) for k, v in batch.items()}}, f)
+
+
+def mg_stage3_snapshot(trainer):
+    cpu = lambda t: t.detach().float().cpu()
+    s, a = trainer.surfels, trainer.gs_adam
+    return {"deformer": {k: cpu(v) for k, v in trainer.deformer.named_parameters()},
+            "warp_mu": {k: cpu(v) for k, v in trainer.warp_opt.mu.items()},
+            "surfels": {f: cpu(v) for f, v in zip(s.params._fields, s.params)},
+            "surfel_mu": {f: cpu(v) for f, v in zip(a.mu._fields, a.mu)},
+            "stats": {f: cpu(getattr(s, f)) for f in ("grad_accum", "denom", "max_radii2d")},
+            "alive": s.alive.cpu()}
+
+
+def mg_stage3_run(mesh, state_path, steps, ref_path=None, check_kernels=False, hooks=False):
+    """One run of the Stage-3 comparison: a trainer of the saved state's
+    options on this process's card (ngpu = the group's size), the saved
+    state loaded (and broadcast), then ``steps`` steps on the saved global
+    batch, the 2DGS terms in the last. Without ``ref_path`` (the one
+    process) the metrics and the state after each step are written to
+    ``state_path`` + ".ref"; with it each rank compares its own with them.
+    The one process also saves its whole trainable state after each step
+    (``.ref.state<i>``); a run against it starts each later step from that
+    state (`force_state`), so that every step is compared from the same
+    state as the first: a step's rounding differences do not carry into
+    the next. ``check_kernels``: after the steps rank 0 holds both kernels
+    against their plain versions on its share's inputs. With ``hooks``,
+    then (from the one process's last state, against it) the densify,
+    opacity-reset and outlier hooks fire once (their cadence set to the
+    step count), and the ranks' checksums are compared again. Returns the
+    report: per step the metrics and the worst differences, the ranks'
+    checksum agreement, step ms, the host batch ms, the gradient all-reduce
+    ms, the launches and the peak memory."""
+    import pickle
+
+    import torch
+
+    from vidu4d_tpu_torch import kernels
+    from vidu4d_tpu_torch.engine.gs4d_trainer import Stage3Trainer
+    from vidu4d_tpu_torch.models.gaussian import surfels as sf
+    from vidu4d_tpu_torch.models.gaussian.optimizer import field_lrs
+    from vidu4d_tpu_torch.parallel import sharding
+
+    with open(state_path, "rb") as f:
+        st = pickle.load(f)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    world = 1 if mesh is None else mesh.world
+    opts = {**st["opts"], "ngpu": world, "logname": f"mg{world}",
+            **({"densify_from_iter": 0, "densification_interval": steps,
+                "opacity_reset_interval": steps, "outlier_filtering_interval": steps}
+               if hooks else {})}
+    trainer = Stage3Trainer(opts, dev, group=mesh)
+    trainer.deformer.load_state_dict(st["deformer"])
+    n = len(sf.SurfelParams._fields)
+    t = [x.to(dev) for x in st["surfels"]]
+    trainer.set_surfels(sf.SurfelState(
+        sf.SurfelParams(*[p.clone().requires_grad_(True) for p in t[:n]]), *t[n:]))
+    trainer.broadcast_state()
+    batch = {k: v.to(dev) for k, v in st["batch"].items()}
+    ref = None
+    if ref_path is not None:
+        with open(ref_path, "rb") as f:
+            ref = pickle.load(f)
+    saved = (state_path + ".ref") if ref is None else ref_path
+    rep = {"rank": 0 if mesh is None else mesh.rank, "world": world, "steps": [],
+           "agree": [trainer.ranks_agree()], "step_ms": []}
+    snaps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    for i in range(steps):
+        if ref is not None and i > 0:
+            force_state(trainer.state_tensors(), f"{saved}.state{i - 1}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch, use_2dgs_reg=(i == steps - 1))
+        torch.cuda.synchronize()
+        rep["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        metrics = {k: float(v) for k, v in m.items()}
+        bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"[multi-gpu] rank {rep['rank']} step {i}: non-finite {bad}")
+        rep["agree"].append(trainer.ranks_agree())
+        snap = mg_stage3_snapshot(trainer)
+        lrs = (trainer.warp_opt.schedule(i), field_lrs(trainer.gs_lrs, float(i + 1))._asdict())
+        entry = {"metrics": metrics}
+        if ref is None:
+            snaps.append({"metrics": metrics, **snap})
+            torch.save([x.detach().cpu() for x in trainer.state_tensors()],
+                       f"{saved}.state{i}")
+        else:
+            entry["diff"] = mg_stage3_diff(ref["steps"][i], metrics, snap, lrs)
+        rep["steps"].append(entry)
+    rep["launches"] = dict(kernels.COUNTS)
+    rep["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the host's read of the global batch from the memory maps, which every
+    # rank makes, and the flat all-reduce of the step's gradients
+    rep["batch_ms"] = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        trainer._next_batch()
+        torch.cuda.synchronize()
+        rep["batch_ms"].append((time.perf_counter() - t0) * 1e3)
+    params = [*trainer.deformer.parameters(), *trainer.surfels.params]
+    rep["grad_floats"] = int(sum(p.numel() for p in params))
+    if mesh is not None:
+        rep["allreduce_ms"] = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sharding.all_reduce_grads_(params, mesh)
+            torch.cuda.synchronize()
+            rep["allreduce_ms"].append((time.perf_counter() - t0) * 1e3)
+    if check_kernels and rep["rank"] == 0:
+        with torch.no_grad():
+            local, _ = sharding.shard_batch(batch, mesh) if mesh is not None else (batch, None)
+            prepared, _ = trainer.render_inputs(local)
+        rep["kernel_check"] = compare_kernels(
+            prepared, np.random.default_rng(11),
+            f"multi-gpu rank {rep['rank']} of {world}: {int(local['frameid'].shape[0])} frames",
+            timed=True)
+    out = {"steps": snaps}
+    if hooks:
+        if ref is not None:
+            force_state(trainer.state_tensors(), f"{saved}.state{steps - 1}")
+        trainer._densify_hooks()
+        rep["hooks"] = [{k: v if k in ("hook", "step") else int(v) for k, v in e.items()}
+                        for e in trainer.hook_log]
+        rep["agree_after_hooks"] = trainer.ranks_agree()
+        rep["alive_after_hooks"] = int(trainer.surfels.num_alive())
+        snap = mg_stage3_snapshot(trainer)
+        if ref is None:
+            out.update(hooks=rep["hooks"], after_hooks=snap)
+        else:
+            rep["hooks_diff"] = mg_hooks_diff(ref, rep["hooks"], snap)
+    if ref is None:
+        with open(saved, "wb") as f:
+            pickle.dump(out, f)
+    return rep
+
+
+def force_state(tensors, path):
+    """Copy a saved trainable state (`Stage3Trainer.state_tensors` order)
+    into ``tensors``, in place."""
+    import torch
+
+    with torch.no_grad():
+        for t, v in zip(tensors, torch.load(path), strict=True):
+            t.copy_(v)
+
+
+def mg_hooks_diff(ref, hooks, snap):
+    """The hooks fired from the one process's last state against the one
+    process's: their log (what fired, how many slots each touched) and the
+    alive mask exactly; the surfel parameters, Adam moments and densify
+    statistics after them relative to each tensor's max |.|."""
+    if hooks != ref["hooks"]:
+        raise AssertionError(f"[multi-gpu] hooks {hooks}, one process {ref['hooks']}")
+    want = ref["after_hooks"]
+    if not bool((want["alive"] == snap["alive"]).all()):
+        raise AssertionError("[multi-gpu] the alive masks after the hooks differ")
+    rel_max = lambda a, b: float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30) \
+        if a.numel() else 0.0
+    return {"hooks_rel_to_max": max(rel_max(v, snap[g][k]) for g in ("surfels", "surfel_mu",
+                                                                      "stats")
+                                    for k, v in want[g].items())}
+
+
+def mg_stage3_diff(ref, metrics, snap, lrs):
+    """The worst differences of one step against the one process's, both
+    from the same state: loss terms and gnorm relative; the Adam moments
+    (the gradients' running means) relative to each tensor's max |.|; the
+    parameters over 2 x the step's learning rate (x the multiplier: Adam's
+    ~lr * g / |g| flips where g is rounding noise); grad_accum and
+    max_radii2d relative to their max, denom's differing slots; alive
+    exactly; the overflow and truncated counts' difference. ``lrs``: (warp
+    learning rate, per-field surfel learning rates) of the step. The
+    overflow and truncated counts and denom's slots may differ where a
+    splat sits on a span or visibility boundary."""
+    from vidu4d_tpu_torch.engine.optim import lr_multiplier
+
+    rel_max = lambda a, b: float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30) \
+        if a.numel() else 0.0
+    out = {"metrics_rel": 0.0, "count_diff": 0}
+    if set(ref["metrics"]) != set(metrics):
+        raise AssertionError(f"[multi-gpu] terms {sorted(set(ref['metrics']) ^ set(metrics))}")
+    for k, a in ref["metrics"].items():
+        b = metrics[k]
+        if k == "alive":
+            if a != b:
+                raise AssertionError(f"[multi-gpu] alive: one process {a}, rank {b}")
+        elif k in ("overflow_splats", "truncated_entries"):
+            out["count_diff"] = max(out["count_diff"], int(abs(a - b)))
+        else:
+            out["metrics_rel"] = max(out["metrics_rel"], abs(a - b) / max(abs(a), 1e-12))
+    warp_lr, surfel_lr = lrs
+    out["warp_mu_rel_to_max"] = max(rel_max(v, snap["warp_mu"][k])
+                                    for k, v in ref["warp_mu"].items())
+    out["deformer_over_2lr"] = max(
+        float((v - snap["deformer"][k]).abs().max()) / (2 * warp_lr * lr_multiplier(k))
+        for k, v in ref["deformer"].items())
+    out["surfel_mu_rel_to_max"] = max(rel_max(v, snap["surfel_mu"][k])
+                                      for k, v in ref["surfel_mu"].items())
+    out["surfel_over_2lr"] = max(
+        float((v - snap["surfels"][k]).abs().max()) / (2 * surfel_lr[k]) if v.numel() else 0.0
+        for k, v in ref["surfels"].items())
+    out["grad_accum_rel_to_max"] = rel_max(ref["stats"]["grad_accum"], snap["stats"]["grad_accum"])
+    out["max_radii2d_rel_to_max"] = rel_max(ref["stats"]["max_radii2d"],
+                                            snap["stats"]["max_radii2d"])
+    out["denom_slots_differing"] = int((ref["stats"]["denom"] != snap["stats"]["denom"]).sum())
+    if not bool((ref["alive"] == snap["alive"]).all()):
+        raise AssertionError("[multi-gpu] the alive masks differ")
+    return out
+
+
+def mg_stage2_state(run, flags, path):
+    """A Stage-2 trainer of ``flags`` on the card after a short SDF pretrain
+    (MG_S2_SDF_ITERS) and the proxy geometry, its model, field states and
+    MG_S2_STEPS global batches saved to ``path``."""
+    import pickle
+
+    import torch
+
+    from vidu4d_tpu_torch import config
+    from vidu4d_tpu_torch.engine.trainer import Stage2Trainer
+
+    opts = config.parse_flags(flags)
+    opts.pop("device")
+    tr = Stage2Trainer({**opts, "logroot": os.path.join(run, "logdir")}, "cuda")
+    tr._geometry_init(sdf_iters=MG_S2_SDF_ITERS, verbose=False)
+    tr.update_geometry_aux(beta=0.0)
+    cpu = lambda t: t.detach().cpu()
+    with open(path, "wb") as f:
+        pickle.dump({"opts": tr.opts,
+                     "model": {k: cpu(v) for k, v in tr.model.state_dict().items()},
+                     "states": {c: [cpu(x) for x in s] for c, s in tr.states.items()},
+                     "batches": [{k: cpu(v) for k, v in tr._next_batch().items()}
+                                 for _ in range(MG_S2_STEPS)]}, f)
+    torch.cuda.synchronize()
+
+
+def mg_stage2_run(mesh, state_path, ref_path=None):
+    """The Stage-2 comparison on this process (one rank of ``mesh``), in
+    float64 (as the Stage-2 card-vs-CPU checks: in float32 the camera and
+    intrinsics gradients are ill-conditioned, and another summation order
+    moves them by percents): the saved model and states, MG_S2_STEPS steps
+    on the saved global batches with the draws of a generator seeded with
+    the step; the metrics, the parameters and the AdamW moments after each
+    step written to ``state_path`` + ".ref" (the one process, with its
+    whole state after each step in ``.ref.state<i>``) or compared with them
+    (each rank, which starts each later step from the one process's state,
+    as `mg_stage3_run` does). Returns the report."""
+    import pickle
+
+    import torch
+
+    from vidu4d_tpu_torch.engine.optim import lr_multiplier, make_stage2_optimizer
+    from vidu4d_tpu_torch.engine.trainer import Stage2Trainer
+    from vidu4d_tpu_torch.models.fields.dyn_nerf import FieldState
+    from vidu4d_tpu_torch.parallel import sharding
+
+    with open(state_path, "rb") as f:
+        st = pickle.load(f)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    f64 = lambda d: {k: (v.double() if v.is_floating_point() else v).to(dev)
+                     for k, v in d.items()}
+    world = 1 if mesh is None else mesh.world
+    tr = Stage2Trainer({**st["opts"], "ngpu": world, "logname": f"mg-s2-{world}"}, dev,
+                       group=mesh)
+    tr.model.double()
+    tr.model.load_state_dict(f64(st["model"]))
+    tr.states = {c: FieldState(*[x.double().to(dev) for x in s]) for c, s in st["states"].items()}
+    tr.optimizer = make_stage2_optimizer(tr.model, tr.opts.get("learning_rate", 5e-4),
+                                         tr.total_steps, tr.opts["num_rounds"])
+    tr.broadcast_state()
+    ref = None
+    if ref_path is not None:
+        with open(ref_path, "rb") as f:
+            ref = pickle.load(f)
+    saved = (state_path + ".ref") if ref is None else ref_path
+    state = lambda: [*tr.model.state_dict().values(), *tr.optimizer.mu.values(),
+                     *tr.optimizer.nu.values()]
+    rep = {"rank": 0 if mesh is None else mesh.rank, "world": world, "steps": [],
+           "step_ms": [], "agree": [tr.ranks_agree()]}
+    snaps = []
+    torch.cuda.reset_peak_memory_stats()
+    for i, b in enumerate(st["batches"]):
+        if ref is not None and i > 0:
+            force_state(state(), f"{saved}.state{i - 1}")
+        batch = f64(b)
+        draws = f64(tr.model.reg_draws(torch.Generator(dev).manual_seed(i)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.train_step(batch, draws)
+        torch.cuda.synchronize()
+        rep["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        tr.current_steps += 1
+        lr = tr.optimizer.schedule(i)
+        rep["agree"].append(tr.ranks_agree())
+        metrics = {k: float(v) for k, v in m.items()}
+        snap = {"params": {k: p.detach().cpu() for k, p in tr.model.named_parameters()},
+                "mu": {k: v.cpu() for k, v in tr.optimizer.mu.items()}}
+        if ref is None:
+            snaps.append({"metrics": metrics, **snap})
+            rep["steps"].append({"metrics": metrics})
+            torch.save([x.detach().cpu() for x in state()], f"{saved}.state{i}")
+            continue
+        r = ref[i]
+        if set(r["metrics"]) != set(metrics):
+            raise AssertionError(f"[multi-gpu] stage 2 terms differ: {sorted(metrics)}")
+        d = {"metrics_rel": max(abs(r["metrics"][k] - metrics[k]) / max(abs(r["metrics"][k]),
+                                                                          1e-30)
+                                for k in metrics)}
+        d["mu_rel_to_max"] = max(float((r["mu"][k] - v).abs().max())
+                                 / max(float(r["mu"][k].abs().max()), 1e-30)
+                                 for k, v in snap["mu"].items())
+        d["param_over_2lr"] = max(float((r["params"][k] - v).abs().max())
+                                  / (2 * lr * lr_multiplier(k))
+                                  for k, v in snap["params"].items())
+        rep["steps"].append({"metrics": metrics, "diff": d})
+    rep["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the host's read of a global batch (every rank reads all of it) and the
+    # flat all-reduce of the step's gradients
+    rep["batch_ms"] = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        tr._next_batch()
+        torch.cuda.synchronize()
+        rep["batch_ms"].append((time.perf_counter() - t0) * 1e3)
+    params = list(tr.model.parameters())
+    rep["grad_floats"] = int(sum(p.numel() for p in params))
+    if mesh is not None:
+        rep["allreduce_ms"] = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sharding.all_reduce_grads_(params, mesh)
+            torch.cuda.synchronize()
+            rep["allreduce_ms"].append((time.perf_counter() - t0) * 1e3)
+    if ref is None:
+        with open(saved, "wb") as f:
+            pickle.dump(snaps, f)
+    return rep
+
+
+def mg_ranks(mesh, jobs):
+    """The rank side of the [multi-gpu] phase: each (function name,
+    arguments) of ``jobs`` in turn."""
+    return [globals()[name](mesh, *args) for name, args in jobs]
+
+
+def mg_nccl_world1(mesh, state_path):
+    """One Stage-3 step with a world-size-1 NCCL group (``mesh``) and one
+    without a group, each from the saved state and batch, in
+    deterministic-algorithms mode (so that two runs of the same step are
+    bitwise equal: index_add_ and cuBLAS pick their deterministic paths);
+    and a second step without a group. Returns whether each is bitwise the
+    first no-group step (metrics, surfel store with its statistics,
+    deformer)."""
+    import pickle
+
+    import torch
+
+    from vidu4d_tpu_torch.engine.gs4d_trainer import Stage3Trainer
+    from vidu4d_tpu_torch.models.gaussian import surfels as sf
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with open(state_path, "rb") as f:
+        st = pickle.load(f)
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def step(group):
+        tr = Stage3Trainer({**st["opts"], "ngpu": 1, "logname": "nccl1"}, dev, group=group)
+        tr.deformer.load_state_dict(st["deformer"])
+        n = len(sf.SurfelParams._fields)
+        t = [x.to(dev) for x in st["surfels"]]
+        tr.set_surfels(sf.SurfelState(
+            sf.SurfelParams(*[p.clone().requires_grad_(True) for p in t[:n]]), *t[n:]))
+        m = tr.train_step({k: v.to(dev) for k, v in st["batch"].items()})
+        s = tr.surfels
+        return ([m[k].cpu() for k in sorted(m)],
+                [x.detach().cpu() for x in (*s.params, *s[1:], *tr.deformer.parameters())])
+
+    base = step(None)
+    same = lambda other: all(torch.equal(a, b) for x, y in zip(base, other)
+                             for a, b in zip(x, y))
+    return {"backend": mesh.backend, "world": mesh.world,
+            "no_group_twice_bitwise": same(step(None)), "nccl_world1_bitwise": same(step(mesh))}
+
+
+def multi_gpu_path(tmp):
+    """[multi-gpu]: data parallelism over frame pairs on the one card.
+
+    1. Stage 3 at the main path's width (MG_PAIRS pairs of the calibrated
+       200k-surfel scene at 256^2, default configuration, the 2DGS terms in
+       the last of MG_STEPS steps): one process, then 2 gloo ranks on
+       cuda:0 (gloo's all_reduce and broadcast take CUDA tensors; NCCL
+       refuses two ranks on one card), on one global batch, each step from
+       the one process's state before it; each rank's metrics and state
+       after each step against the one process's (MG_STEP), the three
+       hooks fired once at the end against the one process's (MG_HOOKS),
+       the ranks' checksums equal after each step and after the hooks, 1
+       K1 and 1 K2 launch per step on each rank and no plain version; both
+       kernels against their plain versions on rank 0's inputs, timed.
+       Then the uneven case (MG_UNEVEN: 3 pairs over 2 ranks, every pair on
+       both at weight 1/2) for 1 step.
+    2. Stage 2 at the README recipe's width (S2_FLAGS: 256 pairs x 16
+       pixels x 64 samples, 8 x 256 field) on make_fake_db(T=16) at 256^2:
+       one process and 2 gloo ranks, MG_S2_STEPS steps from one state after
+       MG_S2_SDF_ITERS SDF pretrain steps, each step from the one
+       process's state before it (MG_S2_STEP).
+    3. A world-size-1 NCCL group through the same code (`sharding.spawn`,
+       `make_mesh`): one Stage-3 step of the uneven case's state, bitwise
+       the step without a group.
+    Returns (report, launches per rank of the Stage-3 steps)."""
+    import torch
+
+    from vidu4d_tpu_torch.parallel import sharding
+
+    mg = os.path.join(tmp, "multi_gpu")
+    os.makedirs(mg)
+    rep = {}
+    states = {}
+    for name, (pairs, res, surfels) in (("main", (MG_PAIRS, MAIN_RES, MAIN_SURFELS)),
+                                        ("uneven", MG_UNEVEN)):
+        trainer, batch = build_trainer(os.path.join(mg, name), "cuda", surfels, res,
+                                       frames=2 * pairs)
+        states[name] = os.path.join(mg, f"{name}.pkl")
+        mg_save_state(trainer, batch, states[name])
+        del trainer, batch
+        torch.cuda.empty_cache()
+    s2_run = os.path.join(mg, "stage2")
+    os.makedirs(s2_run)
+    load_test_module("helpers").make_fake_db(s2_run, num_vids=1, T=S2_FRAMES, H=S2_RES,
+                                             W=S2_RES)
+    cwd = os.getcwd()
+    os.chdir(s2_run)  # the trainers read database/ from the working directory
+    try:
+        mg_stage2_state(s2_run, S2_FLAGS, os.path.join(mg, "s2.pkl"))
+        torch.cuda.empty_cache()
+        # one process, twice: the second run against the first is how far the
+        # step drifts from itself (index_add_'s atomics sum in any order, and
+        # Adam moves a parameter by ~lr whatever the size of its gradient)
+        s2_state = os.path.join(mg, "s2.pkl")
+        one = {"main": mg_stage3_run(None, states["main"], MG_STEPS, hooks=True),
+               "uneven": mg_stage3_run(None, states["uneven"], 1)}
+        again = {"main": mg_stage3_run(None, states["main"], MG_STEPS, states["main"] + ".ref"),
+                 "uneven": mg_stage3_run(None, states["uneven"], 1, states["uneven"] + ".ref")}
+        torch.cuda.empty_cache()
+        one["stage2"] = mg_stage2_run(None, s2_state)
+        again["stage2"] = mg_stage2_run(None, s2_state, s2_state + ".ref")
+        torch.cuda.empty_cache()
+        # 2 ranks on cuda:0 over gloo
+        t0 = time.perf_counter()
+        jobs = [("mg_stage3_run", (states["main"], MG_STEPS, states["main"] + ".ref", True,
+                                   True)),
+                ("mg_stage3_run", (states["uneven"], 1, states["uneven"] + ".ref")),
+                ("mg_stage2_run", (s2_state, s2_state + ".ref"))]
+        ranks = sharding.spawn(mg_ranks, MG_RANKS, args=(jobs,), device="cuda:0",
+                               backend="gloo")
+        rep["ranks_wall_s"] = time.perf_counter() - t0
+        # a world-size-1 NCCL group (cuBLAS's deterministic workspace is set
+        # before the rank starts)
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        try:
+            nccl = sharding.spawn(mg_nccl_world1, 1, args=(states["uneven"],), device="cuda:0",
+                                  backend="nccl")[0]
+        finally:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+    finally:
+        os.chdir(cwd)
+
+    counts, bad = {}, []
+    for key, idx in (("main", 0), ("uneven", 1), ("stage2", 2)):
+        r1 = one[key]
+        drift = [st["diff"] for st in again[key]["steps"]]
+        summary = {"one": {"step_ms_median": float(np.median(r1["step_ms"])),
+                           "step_ms_p90": float(np.percentile(r1["step_ms"], 90)),
+                           "step_ms": r1["step_ms"], "peak_gib": r1["peak_gib"],
+                           **{k: r1[k] for k in ("hooks", "alive_after_hooks") if k in r1}},
+                   "one_again_per_step": drift}
+        bounds = MG_S2_STEP if key == "stage2" else MG_STEP
+        for r, rr in enumerate(rank[idx] for rank in ranks):
+            d = [st["diff"] for st in rr["steps"]]
+            summary[f"rank{r}"] = {
+                "step_ms_median": float(np.median(rr["step_ms"])),
+                "step_ms_p90": float(np.percentile(rr["step_ms"], 90)),
+                "step_ms": rr["step_ms"], "peak_gib": rr["peak_gib"], "agree": rr["agree"],
+                "per_step": d}
+            for k in ("batch_ms", "allreduce_ms", "grad_floats", "launches", "hooks",
+                      "alive_after_hooks"):
+                if k in rr:
+                    summary[f"rank{r}"][k] = rr[k]
+            if not all(rr["agree"]) or not rr.get("agree_after_hooks", True):
+                bad.append(f"{key} rank {r}: the ranks' checksums differ: {rr['agree']}, "
+                           f"after the hooks {rr.get('agree_after_hooks')}")
+            # every step, each from the one process's state before it
+            for i, di in enumerate(d):
+                for k, bound in bounds.items():
+                    if di[k] > bound:
+                        bad.append(f"{key} rank {r} step {i}: {k} {di[k]} > {bound}")
+            if "hooks_diff" in rr:
+                summary[f"rank{r}"]["hooks_diff"] = rr["hooks_diff"]
+                for k, bound in MG_HOOKS.items():
+                    if rr["hooks_diff"][k] > bound:
+                        bad.append(f"{key} rank {r} hooks: {k} {rr['hooks_diff'][k]} > {bound}")
+            elif key == "main":
+                bad.append(f"main rank {r}: the hooks were not compared with one process")
+            if key != "stage2":
+                c = rr["launches"]
+                steps = len(rr["steps"])
+                if (c["tile_forward"] != steps or c["tile_backward"] != steps
+                        or c["tile_forward_plain"] or c["tile_backward_plain"]):
+                    bad.append(f"{key} rank {r} launches {c}, expected {steps} of each kernel "
+                               "and no plain version")
+                if key == "main":
+                    counts[r] = c
+        rep[key] = summary
+        log(f"[multi-gpu {key}] {json.dumps(summary)}")
+    rep["kernel_check"] = ranks[0][0]["kernel_check"]
+    rep["nccl_world1"] = nccl
+    log(f"[multi-gpu nccl world 1] {json.dumps(nccl)}")
+    if not nccl["nccl_world1_bitwise"]:
+        bad.append(f"the world-size-1 NCCL step is not bitwise the step without a group: {nccl}")
+    if bad:
+        raise AssertionError("[multi-gpu] " + "; ".join(bad))
+    return rep, counts
+
+
+def c1_measure(rng):
+    """[c1]: K1 at C1_RES^2 on C1_SPLATS small, distant splats spread over
+    the image (depth 20-40, 0.5-2 px across, so the 2D filter's rho2d
+    decides their response) against `reference.py` evaluated in float64
+    on the float64 projection (ROADMAP C1: the slab's rho2d is a
+    polynomial in absolute pixel coordinates, FIS (px^2 + py^2) + E0 +
+    px E1 + py E2, whose terms reach FIS * 2 * 512^2). Measurement only:
+    the largest rho2d error of that float32 polynomial (the kernel's, on
+    the slab's coefficients) over each splat's 9 x 9 pixels where the exact
+    rho2d < 10, beside the float32 centred form's; K1's alpha against the
+    float64 reference's: the largest error and the share of pixels (and of
+    covered pixels, reference alpha > 1/255) beyond 1/255."""
+    import torch
+
+    from vidu4d_tpu_torch.ops.rasterize import common, reference
+    from vidu4d_tpu_torch.ops.rasterize.tile_backward import composite_batch, prepare_batch
+
+    n, res = C1_SPLATS, C1_RES
+    z = rng.uniform(20.0, 40.0, n)
+    u, v = rng.uniform(8, res - 8, n), rng.uniform(8, res - 8, n)
+    f, c = float(res), res / 2.0
+    means = np.stack([(u - c) * z / f, (v - c) * z / f, z], -1)
+    scales = rng.uniform(0.5, 2.0, (n, 2)) * z[:, None] / f
+    quats = rng.normal(size=(n, 4))
+    opac = rng.uniform(0.3, 0.9, n)
+    colors = rng.uniform(size=(n, 3))
+
+    def project(dtype):
+        t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device="cuda")
+        return common.project_splats(t(means)[None], t(quats)[None], t(scales),
+                                     torch.eye(4, dtype=dtype, device="cuda"),
+                                     t([[f, f, c, c]]))
+
+    p32, p64 = project(torch.float32), project(torch.float64)
+    t32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    with torch.no_grad():
+        prepared = prepare_batch(p32, t32(colors)[None], t32(opac), t32(np.zeros(3)), res, res)
+        alpha_k = composite_batch(prepared, res, res).alpha[0].double()
+        one = common.SplatProjection(*[x[0] for x in p64])
+        alpha_ref = reference.rasterize_naive_from_projection(
+            one, torch.as_tensor(colors, device="cuda"), torch.as_tensor(opac, device="cuda"),
+            torch.zeros(3, dtype=torch.float64, device="cuda"), res, res).alpha
+        torch.cuda.synchronize()
+        # rho2d over each splat's 9 x 9 pixel centres
+        fis = common.FILTER_INV_SQUARE
+        off = torch.arange(-4, 5, device="cuda", dtype=torch.float64)
+        c64 = p64.center2d[0]
+        px = (torch.floor(c64[:, 0:1]) + 0.5 + off[None, :])[:, None, :]
+        py = (torch.floor(c64[:, 1:2]) + 0.5 + off[None, :])[:, :, None]
+        exact = fis * ((c64[:, 0, None, None] - px) ** 2 + (c64[:, 1, None, None] - py) ** 2)
+        cx, cy = p32.center2d[0, :, 0, None, None], p32.center2d[0, :, 1, None, None]
+        pxf, pyf = px.float(), py.float()
+        poly = (fis * (pxf * pxf + pyf * pyf) + fis * (cx * cx + cy * cy)
+                + pxf * (-2.0 * fis * cx) + pyf * (-2.0 * fis * cy))
+        centred = fis * ((cx - pxf) ** 2 + (cy - pyf) ** 2)
+        near = (exact < 10.0) & p64.valid[0][:, None, None]
+        err = lambda x: float(((x.double() - exact).abs() * near).max())
+        diff = (alpha_k - alpha_ref).abs()
+        covered = alpha_ref > 1.0 / 255.0
+    out = {"res": res, "splats": n, "valid": int(p64.valid.sum()),
+           "max_rho2d_err_poly": err(poly), "max_rho2d_err_centred": err(centred),
+           "max_alpha_err": float(diff.max()),
+           "share_px_alpha_err_over_1_255": float((diff > 1.0 / 255.0).double().mean()),
+           "covered_px": int(covered.sum()),
+           "share_covered_px_over_1_255": float(((diff > 1.0 / 255.0) & covered).sum()
+                                                / max(int(covered.sum()), 1))}
+    log(f"[c1 {res}^2] {json.dumps(out)}")
+    if not all(np.isfinite(x) for x in out.values()):
+        raise AssertionError(f"[c1] non-finite measurement: {out}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3037,6 +3712,14 @@ def main() -> int:
         t0 = time.perf_counter()
         mi_rep, mi_counts, mi_handoff = multi_inst_path(tmp)
         log(f"[multi-inst wall] {time.perf_counter() - t0:.1f} s")
+
+        # [multi-gpu]: data parallelism over frame pairs, 2 ranks on the card
+        # against one process; a world-size-1 NCCL group
+        t0 = time.perf_counter()
+        mg_rep, mg_counts = multi_gpu_path(tmp)
+        log(f"[multi-gpu wall] {time.perf_counter() - t0:.1f} s")
+        # [c1]: K1 against exact math on small, distant splats
+        c1_rep = c1_measure(rng)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3085,7 +3768,14 @@ def main() -> int:
          "stage1_train_plain_ms": st_check[f"{key}_plain_ms"],
          "stage1_train_bound_ms": st_check["bounds"][name]["bound_ms"],
          # Stage 2 --nosingle_inst on the 2-video database, its hand-off
-         "multi_inst_launches": mi_counts[name], "multi_inst_handoff_launches": mi_handoff[name]}
+         "multi_inst_launches": mi_counts[name], "multi_inst_handoff_launches": mi_handoff[name],
+         # [multi-gpu]: each rank's launches in the Stage-3 steps; both
+         # kernels against their plain versions on rank 0's inputs
+         "multi_gpu_launches": [c[name] for _, c in sorted(mg_counts.items())],
+         "multi_gpu_max_abs_err": mg_rep["kernel_check"][f"{key}_max_abs_err"],
+         "multi_gpu_ms": mg_rep["kernel_check"][f"{key}_ms"],
+         "multi_gpu_plain_ms": mg_rep["kernel_check"][f"{key}_plain_ms"],
+         "multi_gpu_bound_ms": mg_rep["kernel_check"]["bounds"][name]["bound_ms"]}
         for name, key, replaces in (
             ("tile_forward", "fwd", "vidu4d_tpu/ops/rasterize/pallas_kernel.py:111"),
             ("tile_backward", "bwd", "vidu4d_tpu/ops/rasterize/pallas_backward.py:95"))
@@ -3141,7 +3831,15 @@ def main() -> int:
         f"frames): preprocess {mi_rep['clips'][0]['preprocess_s']:.1f} + "
         f"{mi_rep['clips'][1]['preprocess_s']:.1f} s, mlp_init {mi_rep['mlp_init_s']:.1f} s, "
         f"median step {mi_rep['step_ms_median']:.3f} ms (p90 {mi_rep['step_ms_p90']:.3f}), "
-        f"peak {mi_rep['peak_gib']:.2f} GiB, hand-off {mi_rep['handoff_s']:.1f} s")
+        f"peak {mi_rep['peak_gib']:.2f} GiB, hand-off {mi_rep['handoff_s']:.1f} s; multi-gpu "
+        f"(2 gloo ranks on one card): stage 3 step {mg_rep['main']['one']['step_ms_median']:.3f}"
+        f" ms one process, {mg_rep['main']['rank0']['step_ms_median']:.3f} / "
+        f"{mg_rep['main']['rank1']['step_ms_median']:.3f} ms per rank, gradient all-reduce "
+        f"{float(np.median(mg_rep['main']['rank0']['allreduce_ms'])):.3f} ms; stage 2 step "
+        f"{mg_rep['stage2']['one']['step_ms_median']:.3f} ms one process, "
+        f"{mg_rep['stage2']['rank0']['step_ms_median']:.3f} ms per rank; c1 at {C1_RES}^2: "
+        f"max alpha err {c1_rep['max_alpha_err']:.3g}, rho2d err "
+        f"{c1_rep['max_rho2d_err_poly']:.3g} (centred {c1_rep['max_rho2d_err_centred']:.3g})")
     log(f"[wall] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

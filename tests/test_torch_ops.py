@@ -135,7 +135,8 @@ def test_port_imports_no_jax():
     """Every module of the port (the CLI entry points and their config
     among them, the static 2DGS path's and Stage 2's too, the skeleton
     and the NVP warp, Stage 1's pipeline, RAFT, segmentation and canonical
-    fit), and chip_smoke.py, imports
+    fit, the data-parallel group, host map, visualisation and native
+    gather), and chip_smoke.py, imports
     without jax and without any module of the JAX package (in a fresh
     process)."""
     code = (
@@ -152,7 +153,8 @@ def test_port_imports_no_jax():
         "    'models.fields.nvp', 'preprocess.pipeline', 'preprocess.raft',\n"
         "    'preprocess.segment', 'preprocess.canonical', 'preprocess.train_raft',\n"
         "    'preprocess.train_featnet', 'preprocess.train_depthnet',\n"
-        "    'preprocess.train_common')}\n"
+        "    'preprocess.train_common', 'parallel.sharding', 'utils.host_map', 'utils.vis',\n"
+        "    'data.native')}\n"
         "assert entry <= set(mods), sorted(entry - set(mods))\n"
         "import chip_smoke\n"
         "assert len(mods) >= 30, mods\n"

@@ -1,5 +1,5 @@
 """Dataset construction + metadata extraction + batching helpers
-(`vidu4d_tpu/data/data_utils.py`, one process).
+(`vidu4d_tpu/data/data_utils.py`).
 
 Sequence config ini -> per-video VidDatasets -> dataset metadata
 (`get_data_info`) -> random pair batches (`PairBatcher`).
@@ -14,16 +14,20 @@ import numpy as np
 
 from vidu4d_tpu_torch.data.frame_info import FrameInfo
 from vidu4d_tpu_torch.data.vidloader import VidDataset, load_sequence_config
+from vidu4d_tpu_torch.utils.host_map import host_slice, node_index
 
 
-def build_datasets(opts: Dict, rng: Optional[np.random.Generator] = None
-                   ) -> List[VidDataset]:
+def build_datasets(opts: Dict, rng: Optional[np.random.Generator] = None,
+                   process_index: Optional[int] = None) -> List[VidDataset]:
     """One VidDataset per video of the sequence config, sharing ``rng``
-    (default: the JAX package's single-process one, seeded with
-    ``opts["seed"] + 1``; `data_utils.py:33`). Items hold
-    ``opts["pixels_per_image"]`` pixels (default 16; -1 = whole images)."""
+    (default: seeded with ``opts["seed"] + 7919 * process_index + 1``, as
+    the JAX package seeds it per host, `data_utils.py:33-42`;
+    ``process_index`` defaults to this node, `host_map.node_index`). Items
+    hold ``opts["pixels_per_image"]`` pixels (default 16; -1 = whole
+    images)."""
     if rng is None:
-        rng = np.random.default_rng(opts.get("seed", 0) + 1)
+        host = node_index() if process_index is None else process_index
+        rng = np.random.default_rng(opts.get("seed", 0) + 7919 * host + 1)
     config_path = os.path.join(
         opts.get("dataroot", "database"), "configs", f"{opts['seqname']}.config"
     )
@@ -122,15 +126,21 @@ def get_data_info(datasets: List[VidDataset]) -> Dict:
 
 
 class PairBatcher:
-    """Random (video, frame) pair batches across videos, one process
-    (`data_utils.py:140`): each call returns a dict of (imgs_per_batch, 2,
-    ...) numpy arrays, the same draws as JAX's for the same seed."""
+    """Random (video, frame) pair batches across videos (`data_utils.py:140`):
+    each call returns a dict of (imgs_per_batch, 2, ...) numpy arrays, the
+    same draws as JAX's for the same seed. Over several hosts each samples
+    its `host_slice` of the (video, frame) index with an rng seeded with
+    ``seed + host_id`` (default: this node, `host_map.node_index`)."""
 
-    def __init__(self, datasets: List[VidDataset], imgs_per_batch: int, seed: int = 0):
+    def __init__(self, datasets: List[VidDataset], imgs_per_batch: int, seed: int = 0,
+                 num_hosts: Optional[int] = None, host_id: Optional[int] = None):
         self.datasets = datasets
         self.imgs_per_batch = imgs_per_batch
-        self.index = [(vid, t) for vid, ds in enumerate(datasets) for t in range(len(ds))]
-        self.rng = np.random.default_rng(seed)
+        index = [(vid, t) for vid, ds in enumerate(datasets) for t in range(len(ds))]
+        self.index = host_slice(index, process_index=host_id, process_count=num_hosts)
+        self.host_id = host_id
+        self.rng = np.random.default_rng(seed + (host_id if host_id is not None
+                                                 else node_index()))
 
     def next_batch(self) -> Dict[str, np.ndarray]:
         picks = self.rng.integers(0, len(self.index), size=self.imgs_per_batch)

@@ -18,8 +18,10 @@ Pairs (frame t, t+delta) with delta sampled from {1} + {2,4,8} gated by
 divisibility (`vidloader.py:179-195`). An item is a whole image in raster
 order (``pixels_per_image`` -1, Stage 3) or ``pixels_per_image`` pixels
 drawn without replacement (`RangeSampler`, Stage 2), gathered from the
-memory maps. The rng draws are the JAX package's, so the same seed gives
-the same pairs and pixels.
+memory maps (by the native gather of `data.native` where it builds, unless
+``VIDU4D_NATIVE_SAMPLER=0``; else by numpy, with the same values). The rng
+draws are the JAX package's, so the same seed gives the same pairs and
+pixels.
 """
 
 from __future__ import annotations
@@ -167,7 +169,8 @@ class VidDataset:
                  rand_xy: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
         """Frame ``idx`` and its flow towards ``idx + delta``: every pixel in
         raster order, or the pixels ``rand_xy`` (N, 2) gathered straight from
-        the memory maps (`vidloader.py:159`, its numpy path)."""
+        the memory maps (`vidloader.py:159`), by the native gather where it
+        is on (`vidloader.py:212-260`), else by numpy: the same values."""
         feat = np.asarray(self.mmap["feature"][idx], np.float32)
         if rand_xy is None:
             x0, y0 = np.meshgrid(range(self.img_size[1]), range(self.img_size[0]))
@@ -175,7 +178,8 @@ class VidDataset:
             sel = lambda a: np.asarray(a, np.float32).reshape((-1,) + a.shape[2:])
         else:
             hxy = np.concatenate([rand_xy, np.ones_like(rand_xy[:, :1])], -1)
-            sel = lambda a: np.asarray(a[rand_xy[:, 1], rand_xy[:, 0]], np.float32)
+            sel = self._native_gather(rand_xy) or (
+                lambda a: np.asarray(a[rand_xy[:, 1], rand_xy[:, 0]], np.float32))
         feat_sel = bilinear_interp(feat, hxy[:, :2] / self.img_size[0] * feat.shape[0])
         flow = sel(self._read_flow(idx, delta))
         rgb = sel(self.mmap["rgb"][idx])
@@ -196,6 +200,29 @@ class VidDataset:
             "frameid_sub": np.int32(idx),
             "hxy": hxy.astype(np.float32),
         }
+
+    @staticmethod
+    def _native_gather(rand_xy: np.ndarray):
+        """The native threaded gather of the pixels ``rand_xy`` from one
+        (H, W[, C]) map (`data.native`, straight from the float16 memory
+        maps), as float32 of numpy's shape; None when
+        ``VIDU4D_NATIVE_SAMPLER=0`` or the library does not build."""
+        if os.environ.get("VIDU4D_NATIVE_SAMPLER", "1") == "0":
+            return None
+        from vidu4d_tpu_torch.data import native
+
+        if native.load_library() is None:
+            return None
+        zero = np.zeros(1, np.int32)
+        xyb = np.ascontiguousarray(rand_xy, np.int32)[None]
+
+        def gather(a):
+            src = a if a.flags.c_contiguous and a.dtype in (np.float16, np.float32) \
+                else np.ascontiguousarray(a, np.float32)
+            out = native.gather_pixels(src[None], zero, xyb)[0]
+            return out[..., 0] if a.ndim == 2 else out
+
+        return gather
 
     def _read_flow(self, idx: int, delta: int) -> np.ndarray:
         """The (H, W, 3) flow map (a memory-map view) towards idx + delta."""

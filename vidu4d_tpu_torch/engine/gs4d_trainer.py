@@ -27,6 +27,16 @@ warp, camera and intrinsics over from a JAX Stage-2 checkpoint, and
 ``--nogs_optim_warp``, ``--rgb_loss_only`` and ``--flow_wt 0`` switch the
 corresponding parts off. Options the port does not have yet raise
 NotImplementedError; none is ignored.
+
+``--ngpu N`` (``group``, a `parallel.sharding.Mesh` of N ranks) is data
+parallelism over frame pairs that gives the one-process step's numbers:
+every rank draws the global batch and keeps its share of the pairs, each
+loss term is this rank's part of the global batch's (normalised by global
+counts; the batch-independent volume term on rank 0, ARAP on the rank
+holding the global first pair), the gradients are summed over the ranks in
+one buffer before gnorm, the rollback test and both optimisers read them,
+and the densify statistics are summed (max for the radii). The initial
+state is rank 0's; checkpoints, logs and eval renders are rank 0's only.
 """
 
 from __future__ import annotations
@@ -60,6 +70,7 @@ from vidu4d_tpu_torch.models.gaussian.optimizer import (
 )
 from vidu4d_tpu_torch.models.gaussian.ply_io import save_ply
 from vidu4d_tpu_torch.ops import geometry as geom
+from vidu4d_tpu_torch.ops import global_batch
 from vidu4d_tpu_torch.ops.depth_normal import surf_depth_and_normal
 from vidu4d_tpu_torch.ops.image_losses import ssim
 from vidu4d_tpu_torch.ops.marching import load_obj, sample_mesh_surface
@@ -69,6 +80,7 @@ from vidu4d_tpu_torch.ops.rasterize import RasterizeConfig
 from vidu4d_tpu_torch.ops.rasterize.common import compute_tile_rects, project_splats
 from vidu4d_tpu_torch.ops.rasterize.tile_backward import composite_batch
 from vidu4d_tpu_torch.ops.rasterize.tile_forward import TILE
+from vidu4d_tpu_torch.parallel import sharding
 from vidu4d_tpu_torch.utils.camera_trajectories import construct_batch
 from vidu4d_tpu_torch.utils.logging import ScalarLogger, dump_opts_json
 from vidu4d_tpu_torch.utils.profiler import round_trace
@@ -93,7 +105,6 @@ def check_supported(opts: Dict) -> None:
     if warp is not None:
         raise NotImplementedError(f"{warp} has no SE(3) form")
     unsupported = [
-        ((o.get("ngpu", 1) or 1) > 1, "ngpu>1 (multi-GPU)"),
         (o.get("raster_impl") not in (None, "", "pallas_grad"),
          f"raster_impl={o.get('raster_impl')!r} (the port has the kernel path only)"),
         (o.get("raster_tile", 16) != 16, "raster_tile != 16"),
@@ -208,21 +219,31 @@ class Stage3Trainer:
     (`vidu4d_tpu_torch.convert`). ``current_steps`` counts the steps
     taken; it switches the 2DGS regularisers on after 8k. The run's
     directory, ``<logroot>/<seqname>-<logname>``, is created with the
-    options in ``opts.json``."""
+    options in ``opts.json``.
 
-    def __init__(self, opts: Dict, device="cuda", datasets=None, data_info=None):
+    ``group``: this rank's `parallel.sharding.Mesh` when ``opts["ngpu"]``
+    > 1 (its world size must be ngpu); None builds it from an initialised
+    process group or a launcher's environment, and raises without one."""
+
+    def __init__(self, opts: Dict, device="cuda", datasets=None, data_info=None,
+                 group: Optional[sharding.Mesh] = None):
         check_supported(opts)
         self.opts = dict(opts)
         opts = self.opts
         opts.setdefault("pixels_per_image", -1)  # full images (`gs4d_trainer.py:150`)
         self.device = torch.device(device)
+        self.group = sharding.trainer_group(opts.get("ngpu", 1) or 1, self.device, group)
+        self.is_root = self.group is None or self.group.rank == 0
         self.save_dir = os.path.join(opts.get("logroot", "logdir"),
                                      f"{opts['seqname']}-{opts['logname']}")
-        os.makedirs(self.save_dir, exist_ok=True)
-        dump_opts_json(self.save_dir, opts)
+        if self.is_root:
+            os.makedirs(self.save_dir, exist_ok=True)
+            dump_opts_json(self.save_dir, opts)
         seed = max(opts.get("seed", 0), 0)
         if datasets is None:
-            datasets = data_utils.build_datasets(opts)
+            # every rank, on every node, draws the whole global batch as
+            # one host does (`sharding.shard_batch` alone splits it)
+            datasets = data_utils.build_datasets(opts, process_index=0)
         self.datasets = datasets
         self.data_info = data_info or data_utils.get_data_info(datasets)
         self.frame_info = self.data_info["frame_info"]
@@ -256,7 +277,8 @@ class Stage3Trainer:
                 torch.as_tensor(cols, device=self.device), cap, sh_degree=sh_degree,
                 generator=gen,
             )
-        self.batcher = data_utils.PairBatcher(datasets, opts.get("imgs_per_gpu", 1), seed=seed)
+        self.batcher = data_utils.PairBatcher(datasets, opts.get("imgs_per_gpu", 1), seed=seed,
+                                              num_hosts=1, host_id=0)
         self.gs_lrs = GsLearningRates(
             xyz_init=opts.get("position_lr_init", 5e-5),
             xyz_final=opts.get("position_lr_final", 1.6e-6),
@@ -293,6 +315,26 @@ class Stage3Trainer:
             span_cap=opts.get("raster_span_cap", 4),
             entry_cap=int(opts.get("raster_entry_cap", 2 ** 19) or 0),
         )
+        self.broadcast_state()
+
+    def state_tensors(self) -> list:
+        """Every tensor of the trainable state: the deformer's parameters
+        and buffers, the surfel store, both optimisers' moments."""
+        out = [*self.deformer.state_dict().values(), *self.surfels.params, *self.surfels[1:],
+               *self.gs_adam.mu, *self.gs_adam.nu]
+        if self.warp_opt is not None:
+            out += [*self.warp_opt.mu.values(), *self.warp_opt.nu.values()]
+        return out
+
+    def broadcast_state(self) -> None:
+        """Rank 0's trainable state on every rank (after the init and every
+        load; GPU non-determinism must not split the ranks)."""
+        sharding.broadcast_tensors_(self.state_tensors(), self.group)
+
+    def ranks_agree(self) -> bool:
+        """Whether every rank holds the same trainable state (a checksum
+        all-reduce); True for one process."""
+        return sharding.checksum_agrees(self.state_tensors(), self.group)
 
     def set_surfels(self, state: sf.SurfelState) -> None:
         """Replace the surfel store and reset its Adam moments."""
@@ -348,7 +390,8 @@ class Stage3Trainer:
                       dummy: Optional[torch.Tensor] = None):
         """Warp the surfels to every batch frame, compute their pair flow
         (the 2 extra channels, when flow is supervised) and prepare the tile
-        kernels' inputs (`gs4d_trainer.py:384-452`). Returns
+        kernels' inputs (`gs4d_trainer.py:384-452`); the flow's scale is
+        the global batch's (`global_batch.amax`). Returns
         (`prepare_surfels_batch` dict, context dict with "samples",
         "xyz_cam", "rot_cam", "intrins" and "flow_scale")."""
         d = self.deformer
@@ -365,7 +408,8 @@ class Stage3Trainer:
             # normalise to ~[-1, 1] before compositing; the scale is data,
             # and dead slots (degenerate projections) do not set it
             flow_alive = torch.where(alive[None, :, None], flow_pw, 0.0)
-            flow_scale = (torch.amax(torch.abs(flow_alive)) + 1e-6).detach()
+            flow_max = global_batch.amax(torch.amax(torch.abs(flow_alive)).detach())
+            flow_scale = flow_max + 1e-6
             extra = flow_pw / flow_scale
         prepared = prepare_surfels_batch(
             sp, alive, xyz_cam, rot_cam, intrins, self.res, self.res,
@@ -378,7 +422,9 @@ class Stage3Trainer:
 
     def loss(self, batch: Dict[str, torch.Tensor], dummy: torch.Tensor,
              use_2dgs_reg: bool = False):
-        """The step's loss (`gs4d_trainer.py:378-617`).
+        """The step's loss (`gs4d_trainer.py:378-617`). When data-parallel
+        ranks split the batch (`ops.global_batch.over`), every term is this
+        rank's part of the global batch's.
 
         Returns (total, loss_dict, render output, (xyz_cam, rot_cam,
         intrins) detached for the densify statistics)."""
@@ -386,6 +432,7 @@ class Stage3Trainer:
         res = self.res
         d = self.deformer
         sp = self.surfels.params
+        mean, nz_mean = global_batch.mean, losses_mod.nonzero_mean
         prepared, ctx = self.render_inputs(batch, dummy)
         samples, xyz_cam, intrins = ctx["samples"], ctx["xyz_cam"], ctx["intrins"]
         out = composite_batch(prepared, res, res)
@@ -396,12 +443,12 @@ class Stage3Trainer:
 
         loss_dict = {}
         # rgb: L1 on vis2d pixels, + DSSIM against the masked GT
-        loss_dict["rgb"] = (1.0 - cfg["lambda_dssim"]) * torch.mean(
+        loss_dict["rgb"] = (1.0 - cfg["lambda_dssim"]) * mean(
             torch.abs(rgb_out - gt_rgb) * vis2d)
         if cfg["lambda_dssim"] > 0:
             ssim_val = ssim(rgb_out.permute(0, 3, 1, 2),
                             (gt_rgb * gt_mask * vis2d).permute(0, 3, 1, 2))
-            loss_dict["rgb_ssim"] = cfg["lambda_dssim"] * torch.mean(1 - ssim_val)
+            loss_dict["rgb_ssim"] = cfg["lambda_dssim"] * mean(1 - ssim_val)
         maskfg_vis = gt_mask * vis2d
         if prepared["n_extra"]:  # the 2 flow channels
             # composited surfel flow vs GT: uncertainty-gated, fg-masked,
@@ -415,18 +462,16 @@ class Stage3Trainer:
                 snr_w = torch.clamp(safe_norm(gt_flow, dim=-1, keepdim=True) / noise_px
                                     - 1.0, 0.0, 1.0)
             flow_l = safe_norm(flow_img - gt_flow, dim=-1, keepdim=True)
-            loss_dict["flow"] = (losses_mod.nonzero_mean(flow_l * snr_w * uct_ok
-                                                         * maskfg_vis)
+            loss_dict["flow"] = (nz_mean(flow_l * snr_w * uct_ok * maskfg_vis)
                                  / cfg["train_res"]) * cfg["flow_wt"]
         if cfg["depth_wt"] > 0 and "depth" in batch:
             depth_img = (out.depth / torch.clamp(out.alpha, min=1e-6))[..., None]
             depth_l = torch.abs(depth_img - img(batch["depth"]))
-            loss_dict["depth"] = losses_mod.nonzero_mean(depth_l * maskfg_vis) \
-                * cfg["depth_wt"]
+            loss_dict["depth"] = nz_mean(depth_l * maskfg_vis) * cfg["depth_wt"]
         balance = losses_mod.get_mask_balance_wt(gt_mask, vis2d, batch["is_detected"])
         mask_loss = ((out.alpha[..., None] - gt_mask) ** 2) * balance * vis2d
         is_det = batch["is_detected"].reshape(-1, 1, 1, 1)
-        loss_dict["mask"] = losses_mod.nonzero_mean(mask_loss * is_det)
+        loss_dict["mask"] = nz_mean(mask_loss * is_det)
 
         if not cfg["rgb_loss_only"]:
             # feature reprojection on a uniform pixel subgrid of each frame
@@ -442,19 +487,19 @@ class Stage3Trainer:
                 matches = d.global_match(feat_px, sp.regist_feat, sp.xyz)
                 xy_reproj, _ = d.forward_project(matches, samples)
                 reproj = safe_norm(xy_reproj - hxy_px, dim=-1, keepdim=True)
-                loss_dict["feat_reproj"] = losses_mod.nonzero_mean(
+                loss_dict["feat_reproj"] = nz_mean(
                     reproj * maskfg_px.to(reproj.dtype)) / cfg["train_res"]
 
             # cycle + skin regularisers on a strided 1/cycle_subsample subset
             sub_c = max(int(cfg["cycle_subsample"] or 1), 1)
             cyc = d.cycle_loss(xyz_cam[:, ::sub_c], sp.xyz[::sub_c], samples)
-            loss_dict["reg_deform_cyc"] = losses_mod.nonzero_mean(cyc["cyc_dist"])
+            loss_dict["reg_deform_cyc"] = nz_mean(cyc["cyc_dist"])
             # a warp without bones returns neither skin term
             # (`gs4d_trainer.py:564-567`)
             if "delta_skin" in cyc:
-                loss_dict["reg_delta_skin"] = losses_mod.nonzero_mean(cyc["delta_skin"])
+                loss_dict["reg_delta_skin"] = nz_mean(cyc["delta_skin"])
             if "skin_entropy" in cyc:
-                loss_dict["reg_skin_entropy"] = losses_mod.nonzero_mean(cyc["skin_entropy"])
+                loss_dict["reg_skin_entropy"] = nz_mean(cyc["skin_entropy"])
 
             # 2DGS normal / distortion regularisers
             if use_2dgs_reg and cfg["lambda_normal"] > 0:
@@ -462,20 +507,23 @@ class Stage3Trainer:
                     out.depth / torch.clamp(out.alpha, min=1e-6), out.median_depth,
                     out.alpha, intrins)
                 n_err = 1.0 - torch.sum(out.normal * surf_norm, dim=-1)
-                loss_dict["normal_loss"] = cfg["lambda_normal"] * torch.mean(n_err)
+                loss_dict["normal_loss"] = cfg["lambda_normal"] * mean(n_err)
             if use_2dgs_reg and cfg["lambda_dist"] > 0:
-                loss_dict["dist_loss"] = cfg["lambda_dist"] * torch.mean(out.distortion)
+                loss_dict["dist_loss"] = cfg["lambda_dist"] * mean(out.distortion)
 
+            # the volume term does not depend on the batch: rank 0 adds it
             if cfg["reg_volume_loss_wt"] > 0:
-                loss_dict["reg_volume_loss"] = cfg["reg_volume_loss_wt"] * torch.mean(
+                vol = cfg["reg_volume_loss_wt"] * torch.mean(
                     torch.prod(sf.get_scaling(sp), dim=1) * self.surfels.alive)
+                loss_dict["reg_volume_loss"] = global_batch.once(vol)
 
-            # ARAP rigidity of the bone centers between the pair frames
+            # ARAP rigidity of the bone centers between the global batch's
+            # first pair (the rank holding it adds it)
             if cfg["arap_wt"] > 0 and "t_articulation" in samples:
                 _, bones = dual_quaternion_to_quaternion_translation(
                     samples["t_articulation"])
-                loss_dict["arap"] = cfg["arap_wt"] * arap_bone_loss(
-                    bones[0], bones[1 % bones.shape[0]])
+                loss_dict["arap"] = global_batch.first_pair(
+                    cfg["arap_wt"] * arap_bone_loss(bones[0], bones[1 % bones.shape[0]]))
 
         for k, wt_key in (("rgb", "rgb_wt"), ("mask", "mask_wt"),
                           ("rgb_ssim", "rgb_wt"),
@@ -494,9 +542,14 @@ class Stage3Trainer:
         """One training step (`gs4d_trainer.py:621-707`): updates the surfel
         store and its Adam state, and the deformer with the warp AdamW
         (when ``gs_optim_warp``), in place. ``use_2dgs_reg`` None: from
-        ``current_steps``. Returns a dict of 0-d tensors."""
+        ``current_steps``. ``batch`` is the global batch; with a group each
+        rank keeps its share. Returns a dict of 0-d tensors (the global
+        batch's)."""
         if batch is None:
             batch = self._next_batch()
+        share = None
+        if self.group is not None:
+            batch, share = sharding.shard_batch(batch, self.group)
         if use_2dgs_reg is None:
             use_2dgs_reg = self.use_2dgs_reg(self.current_steps)
         surf = self.surfels
@@ -508,10 +561,12 @@ class Stage3Trainer:
             p.grad = None
         dummy = torch.zeros((batch["frameid"].shape[0], surf.capacity, 2),
                             device=self.device, requires_grad=True)
-        total, loss_dict, _, warped = self.loss(batch, dummy, use_2dgs_reg)
+        with global_batch.over(share):
+            total, loss_dict, _, warped = self.loss(batch, dummy, use_2dgs_reg)
         total.backward()
 
         with torch.no_grad():
+            sharding.all_reduce_grads_([*dparams, *sp], self.group)
             sgrads = sf.SurfelParams(*[
                 p.grad if p.grad is not None else torch.zeros_like(p) for p in sp])
             sq = [torch.sum(g * g) for g in sgrads]
@@ -534,16 +589,30 @@ class Stage3Trainer:
                 truncated = torch.sum(torch.clamp(entries - cfg.entry_cap, min=0))
             else:
                 truncated = torch.zeros((), dtype=torch.int64, device=self.device)
+            grad_inc = torch.sum(torch.where(vis, norms, 0.0), 0)
+            denom_inc = torch.sum(vis.to(surf.denom.dtype), 0)
+            radii = torch.amax(torch.where(vis, proj.radius, 0.0), 0)
+            if share is not None:
+                # the dummy's gradient carries the share's weight already
+                grad_inc = share.mesh.all_reduce_(grad_inc)
+                denom_inc = share.mesh.all_reduce_(denom_inc * share.weight)
+                radii = share.mesh.all_reduce_(radii, "max")
+                counts = torch.stack([overflow.to(torch.int64), truncated.to(torch.int64)])
+                counts = share.mesh.all_reduce_(
+                    counts * int(share.weight == 1.0 or share.root))
+                overflow, truncated = counts[0].to(overflow.dtype), counts[1]
             self.surfels = surf._replace(
-                grad_accum=surf.grad_accum + torch.sum(torch.where(vis, norms, 0.0), 0),
-                denom=surf.denom + torch.sum(vis.to(surf.denom.dtype), 0),
-                max_radii2d=torch.maximum(
-                    surf.max_radii2d, torch.amax(torch.where(vis, proj.radius, 0.0), 0)),
+                grad_accum=surf.grad_accum + grad_inc,
+                denom=surf.denom + denom_inc,
+                max_radii2d=torch.maximum(surf.max_radii2d, radii),
             )
             self.gs_adam = gs_adam_update(sgrads, self.gs_adam, sp, self.gs_lrs)
         if self.warp_opt is not None:
             self.warp_opt.step()
         self.current_steps += 1
+        if share is not None:
+            loss_dict = sharding.reduce_metrics(loss_dict, share)
+            total = sum(loss_dict[k] for k in sorted(loss_dict))
 
         return {
             "total": total.detach(),
@@ -682,9 +751,13 @@ class Stage3Trainer:
         """Rounds ``current_round`` .. ``num_rounds`` - 1 (`gs4d_trainer.py:877`):
         an eval render of frame 0 to the logger, `train_one_round` (traced
         with ``opts["profile"]``), a checkpoint every ``save_freq`` rounds
-        and after the last, and one line per round."""
-        logger = ScalarLogger(self.save_dir)
-        if log_fn is None:
+        and after the last, and one line per round. Of a group's ranks,
+        rank 0 alone renders, logs, traces, writes and prints."""
+        root = self.is_root
+        logger = ScalarLogger(self.save_dir) if root else None
+        if not root:
+            log_fn = None
+        elif log_fn is None:
             log_fn = logger.log_loss_dict
         num_rounds = self.opts.get("num_rounds", 60)
         save_freq = self.opts.get("save_freq", 10)
@@ -692,15 +765,17 @@ class Stage3Trainer:
             for rnd in range(self.current_round, num_rounds):
                 self._update_rollback_cache()
                 t0 = time.time()
-                eval_batch = construct_batch(inst_id=0, frameid_sub=np.arange(1),
-                                             eval_res=self.res, field2cam=None,
-                                             camera_int=None, crop2raw=None,
-                                             device=self.device)
-                rendered = self.render_batch(eval_batch, res=self.res)
-                logger.image(rnd, "eval/rendered", rendered["rendered"][0])
-                logger.image(rnd, "eval/mask", rendered["mask"][0])
+                if root:
+                    eval_batch = construct_batch(inst_id=0, frameid_sub=np.arange(1),
+                                                 eval_res=self.res, field2cam=None,
+                                                 camera_int=None, crop2raw=None,
+                                                 device=self.device)
+                    rendered = self.render_batch(eval_batch, res=self.res)
+                    logger.image(rnd, "eval/rendered", rendered["rendered"][0])
+                    logger.image(rnd, "eval/mask", rendered["mask"][0])
                 first_hook = len(self.hook_log)
-                with round_trace(self.save_dir, rnd, enabled=self.opts.get("profile", False),
+                with round_trace(self.save_dir, rnd,
+                                 enabled=root and self.opts.get("profile", False),
                                  device=self.device):
                     metrics = self.train_one_round(log_fn=log_fn)
                 self.current_round = rnd + 1
@@ -713,12 +788,14 @@ class Stage3Trainer:
                     cover = (f" [coverage: {overflow} span-clamped splats,"
                              f" {truncated} budget-dropped entries]")
                 self.round_seconds.append(time.time() - t0)
-                print(f"Round {rnd:03d}: time={self.round_seconds[-1]:.3f}s "
-                      f"total={float(metrics['total']):.4f} "
-                      f"alive={int(metrics['alive'])}{cover}"
-                      f"{hooks_note(self.hook_log[first_hook:])}")
+                if root:
+                    print(f"Round {rnd:03d}: time={self.round_seconds[-1]:.3f}s "
+                          f"total={float(metrics['total']):.4f} "
+                          f"alive={int(metrics['alive'])}{cover}"
+                          f"{hooks_note(self.hook_log[first_hook:])}")
         finally:
-            logger.close()
+            if logger is not None:
+                logger.close()
 
     # ------------------------------------------------------------------
     # rendering and checkpoints
@@ -758,7 +835,10 @@ class Stage3Trainer:
         "current_round", "params" (the deformer, by state_dict name),
         "surfels", "gs_adam", "opts", and no warp-optimiser state; it holds
         only dicts of numpy arrays and Python values, so reading it needs
-        neither this package nor torch."""
+        neither this package nor torch. Of a group's ranks, rank 0 alone
+        writes."""
+        if not self.is_root:
+            return
         npy = lambda x: x.detach().cpu().numpy()
         fields = lambda tree: {f: npy(v) for f, v in zip(sf.SurfelParams._fields, tree)}
         s, a = self.surfels, self.gs_adam
@@ -797,14 +877,17 @@ class Stage3Trainer:
         if not reset_steps:
             self.current_steps = payload["current_steps"]
             self.current_round = payload["current_round"]
+        self.broadcast_state()
         return payload
 
     def load_stage2(self, path: str) -> list:
         """Take over the warp, camera MLP, logscale and intrinsics of a
         Stage-2 checkpoint of the JAX package (`gs4d_trainer.py:1001`),
         in place. Returns the keys copied."""
-        return transfer_stage2_params(convert.load_jax_checkpoint(path)["params"],
+        keys = transfer_stage2_params(convert.load_jax_checkpoint(path)["params"],
                                       self.deformer)
+        self.broadcast_state()
+        return keys
 
 
 def hooks_note(events) -> str:

@@ -1,6 +1,11 @@
 """Loss assembly: reconstruction terms, mask rules and weighting
 (`vidu4d_tpu/engine/losses.py`). The Stage-3 step uses the two helpers;
-Stage 2's `DvrModel.loss` the whole chain."""
+Stage 2's `DvrModel.loss` the whole chain.
+
+The reductions over the batch go through `ops.global_batch`: when
+data-parallel ranks split the batch, each is this rank's part of the
+global batch's value (a local sum over the global count); otherwise the
+plain reduction."""
 
 from __future__ import annotations
 
@@ -8,6 +13,7 @@ from typing import Dict
 
 import torch
 
+from vidu4d_tpu_torch.ops import global_batch
 from vidu4d_tpu_torch.ops.numerics import safe_norm
 
 # masking rule groups (`losses.py:20-25`)
@@ -25,16 +31,17 @@ def _per_frame(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def get_mask_balance_wt(mask, vis2d, is_detected):
-    """Balance positive/negative mask pixels (`losses.py:28`)."""
+    """Balance positive/negative mask pixels (`losses.py:28`). The pixel
+    counts and the ``usable`` test are sums over the (global) batch."""
     mask = mask.float()
     vis2d = vis2d.float() * _per_frame(is_detected.float(), mask)
-    pos_px = torch.sum(mask * (vis2d > 0))
-    neg_px = torch.sum((1 - mask) * (vis2d > 0))
-    total = torch.sum(vis2d)
+    sums = torch.stack([torch.sum(mask * (vis2d > 0)), torch.sum((1 - mask) * (vis2d > 0)),
+                        torch.sum(vis2d), torch.sum(mask), torch.sum(1 - mask)])
+    pos_px, neg_px, total, n_pos, n_neg = global_batch.total(sums).unbind(0)
     pos_wt = total / torch.clamp(pos_px, min=1e-6)
     neg_wt = total / torch.clamp(neg_px, min=1e-6)
     balanced = 0.5 * pos_wt * mask + 0.5 * neg_wt * (1 - mask)
-    usable = (torch.sum(mask) > 0) & (torch.sum(1 - mask) > 0)
+    usable = (n_pos > 0) & (n_neg > 0)
     return torch.where(usable, balanced, torch.ones_like(balanced))
 
 
@@ -110,11 +117,13 @@ def mask_losses(loss_dict: Dict, batch: Dict, config: Dict) -> Dict:
 
 
 def nonzero_mean(v: torch.Tensor) -> torch.Tensor:
-    """Mean over strictly-positive entries; plain mean if none."""
+    """Mean over strictly-positive entries; plain mean if none (of the
+    global batch when the ranks split it)."""
     pos = (v > 0).to(v.dtype)
-    cnt = torch.sum(pos)
-    return torch.where(cnt > 0, torch.sum(v * pos) / torch.clamp(cnt, min=1.0),
-                       torch.mean(v))
+    cnt = global_batch.total(torch.sum(pos))
+    return torch.where(cnt > 0,
+                       global_batch.weighted(torch.sum(v * pos)) / torch.clamp(cnt, min=1.0),
+                       global_batch.mean(v))
 
 
 def apply_loss_weights(loss_dict: Dict, config: Dict, weight_overrides: Dict) -> Dict:

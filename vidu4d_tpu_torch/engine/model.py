@@ -30,6 +30,7 @@ from vidu4d_tpu_torch.models.fields.skeleton import ArticulationSkelMLP
 from vidu4d_tpu_torch.models.fields.time_mlp import IntrinsicsMLP
 from vidu4d_tpu_torch.models.fields.warping import ComposedWarp, SkinningWarp
 from vidu4d_tpu_torch.ops import geometry as geom
+from vidu4d_tpu_torch.ops import global_batch
 from vidu4d_tpu_torch.ops.quaternion import quaternion_translation_to_se3
 from vidu4d_tpu_torch.ops.volume import render_pixel
 
@@ -198,8 +199,12 @@ class DvrModel(nn.Module):
         """Forward + loss assembly (`model.py:226`). batch: the flattened
         (M, N, ...) pixel batch (pairs merged); config: the loss options;
         weights: the step's annealed overrides (`progress_schedule`);
-        draws: `reg_draws`. Returns (weighted loss terms, (rendered,
-        aux_dict))."""
+        draws: `reg_draws`. When data-parallel ranks split the batch
+        (`ops.global_batch.over`), every dense term is this rank's part of
+        the global batch's (normalised by global counts) and the sampled
+        regularisers, which do not depend on the batch, count on rank 0
+        only (`global_batch.once`). The loss draws nothing per ray.
+        Returns (weighted loss terms, (rendered, aux_dict))."""
         alpha = weights.get("alpha")
         rendered, aux_dict = self.render(batch, states, train=train, alpha=alpha,
                                          flow_thresh=config.get("train_res"))
@@ -211,6 +216,7 @@ class DvrModel(nn.Module):
                          ("skin_entropy", "reg_skin_entropy")):
             if src in fg:
                 loss_dict[dst] = fg[src]
-        loss_dict.update(self.reg_losses(states, draws, alpha=alpha))
+        reg = self.reg_losses(states, draws, alpha=alpha)
+        loss_dict.update({k: global_batch.once(v) for k, v in reg.items()})
         loss_dict = losses_mod.apply_loss_weights(loss_dict, config, weights)
         return loss_dict, (rendered, aux_dict)

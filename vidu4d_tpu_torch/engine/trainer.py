@@ -20,6 +20,16 @@ Random draws (the sampled regularisers of each step, the SDF pretrain's
 points) come from ``torch.Generator``s seeded as the JAX package seeds its
 keys (the step number; 123 for the pretrain); both functions take the
 draws as an argument too.
+
+``--ngpu N`` (``group``, a `parallel.sharding.Mesh` of N ranks) is data
+parallelism over frame pairs that gives the one-process step's numbers:
+every rank draws the global batch and keeps its share of the pairs,
+`DvrModel.loss` normalises every term by global counts (the sampled
+regularisers and the camera prior on rank 0 only), and the gradients are
+summed over the ranks in one buffer before gnorm, the NaN zeroing, the
+clipping and AdamW read them. `mlp_init` and the proxy geometry run on rank
+0 and are broadcast; checkpoints, meshes, logs and console lines are rank
+0's only.
 """
 
 from __future__ import annotations
@@ -48,9 +58,11 @@ from vidu4d_tpu_torch.models.fields.time_mlp import (
     intrinsics_prior_loss,
 )
 from vidu4d_tpu_torch.ops import geometry as geom
+from vidu4d_tpu_torch.ops import global_batch
 from vidu4d_tpu_torch.ops.marching import extract_mesh_np, sample_mesh_surface, save_obj
 from vidu4d_tpu_torch.ops.numerics import safe_norm, safe_normalize
 from vidu4d_tpu_torch.ops.quaternion import quaternion_translation_to_se3
+from vidu4d_tpu_torch.parallel import sharding
 from vidu4d_tpu_torch.utils.logging import ScalarLogger, dump_opts_json
 from vidu4d_tpu_torch.utils.profiler import round_trace
 
@@ -70,41 +82,37 @@ N_SDF_INIT = 5000
 RENDER_CHUNK = 8192
 
 
-def check_supported(opts: Dict) -> None:
-    """Raise NotImplementedError for every option value whose Stage-2 code
-    path the port does not have yet."""
-    o = opts
-    unsupported = [
-        ((o.get("ngpu", 1) or 1) > 1, "ngpu>1 (multi-GPU)"),
-    ]
-    missing = [what for bad, what in unsupported if bad]
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
-
-
 class Stage2Trainer:
     """Stage-2 trainer state, its step and its round loop, on ``device``
     (the card by default; the CPU only when asked for with
     ``device="cpu"``). opts: the JAX trainer's option dict. Parameters are
     drawn from a ``torch.Generator`` seeded with ``max(opts["seed"], 0)``.
     The run's directory, ``<logroot>/<seqname>-<logname>``, is created with
-    the options in ``opts.json``."""
+    the options in ``opts.json``. ``group``: this rank's
+    `parallel.sharding.Mesh` when ``opts["ngpu"]`` > 1
+    (`sharding.trainer_group`)."""
 
-    def __init__(self, opts: Dict, device="cuda", datasets=None, data_info=None):
-        check_supported(opts)
+    def __init__(self, opts: Dict, device="cuda", datasets=None, data_info=None,
+                 group: Optional[sharding.Mesh] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Stage2Trainer: CUDA is not available; pass device='cpu' "
                                "to run on the CPU")
         self.opts = dict(opts)
         opts = self.opts
-        self.datasets = datasets if datasets is not None else data_utils.build_datasets(opts)
+        self.group = sharding.trainer_group(opts.get("ngpu", 1) or 1, self.device, group)
+        self.is_root = self.group is None or self.group.rank == 0
+        # every rank, on every node, draws the whole global batch as one
+        # host does (`sharding.shard_batch` alone splits it)
+        self.datasets = (datasets if datasets is not None
+                         else data_utils.build_datasets(opts, process_index=0))
         self.data_info = data_info or data_utils.get_data_info(self.datasets)
         self.frame_info = self.data_info["frame_info"]
         self.save_dir = os.path.join(opts.get("logroot", "logdir"),
                                      f"{opts['seqname']}-{opts['logname']}")
-        os.makedirs(self.save_dir, exist_ok=True)
-        dump_opts_json(self.save_dir, opts)
+        if self.is_root:
+            os.makedirs(self.save_dir, exist_ok=True)
+            dump_opts_json(self.save_dir, opts)
 
         self.current_steps = 0
         self.current_round = 0
@@ -137,7 +145,7 @@ class Stage2Trainer:
                                                 device=self.device)
                        for cate in FIELD_CATEGORIES[opts.get("field_type", "fg")]}
         self.batcher = data_utils.PairBatcher(self.datasets, opts.get("imgs_per_gpu", 256),
-                                              seed=seed)
+                                              seed=seed, num_hosts=1, host_id=0)
         # the JAX trainer draws one batch to initialise its parameters
         # (`trainer.py:179`): drawn here too, so the same seed gives the
         # same training batches
@@ -146,8 +154,24 @@ class Stage2Trainer:
             self.model, learning_rate=opts.get("learning_rate", 5e-4),
             total_steps=self.total_steps, num_rounds=opts["num_rounds"],
             intrinsics_lr_mult=opts.get("intrinsics_lr_mult", 1.0))
-        # each field's proxy mesh (verts, faces), once it has one
+        # each field's proxy mesh (verts, faces), once it has one (rank 0's)
         self.proxy_meshes: Dict[str, tuple] = {}
+        self.broadcast_state()
+
+    def state_tensors(self) -> list:
+        """The model's parameters and buffers, the field states and the
+        optimiser's moments."""
+        return [*self.model.state_dict().values(),
+                *(x for st in self.states.values() for x in st),
+                *self.optimizer.mu.values(), *self.optimizer.nu.values()]
+
+    def broadcast_state(self) -> None:
+        """Rank 0's model, field states and optimiser moments on every rank."""
+        sharding.broadcast_tensors_(self.state_tensors(), self.group)
+
+    def ranks_agree(self) -> bool:
+        """Whether every rank holds the same state (a checksum all-reduce)."""
+        return sharding.checksum_agrees(self.state_tensors(), self.group)
 
     @property
     def _proxy_mesh(self):
@@ -174,7 +198,12 @@ class Stage2Trainer:
         (to 1e-4) to their priors (the fg camera prior for every field,
         `trainer.py:198-219`), pretrain the SDFs to a sphere, then build
         the proxy geometry with beta 0. Returns the fits' losses, steps and
-        seconds."""
+        seconds. Of a group's ranks, rank 0 fits and the others take its
+        result (and return {})."""
+        if not self.is_root:
+            self.broadcast_state()
+            self.update_geometry_aux(beta=0.0)
+            return {}
         info = {}
         t0 = time.perf_counter()
         intr = self.model.intrinsics
@@ -204,6 +233,7 @@ class Stage2Trainer:
         t0 = time.perf_counter()
         info["sdf_loss"] = self._geometry_init(sdf_iters=sdf_iters, verbose=verbose)
         info["sdf_seconds"] = time.perf_counter() - t0
+        self.broadcast_state()
         self.update_geometry_aux(beta=0.0)
         return info
 
@@ -267,7 +297,17 @@ class Stage2Trainer:
         """The SDF on a grid over the 0.5-extended aabb -> marching tets ->
         the proxy mesh; its bounds and the near/far planes of n_proxy
         surface points under the current cameras, blended into the field
-        state with weight ``beta`` on the old."""
+        state with weight ``beta`` on the old. Of a group's ranks, rank 0
+        computes and the others take its field states."""
+        if not self.is_root:
+            sharding.broadcast_tensors_([x for st in self.states.values() for x in st],
+                                        self.group)
+            return
+        self._update_geometry_aux(beta, grid_size, n_proxy)
+        sharding.broadcast_tensors_([x for st in self.states.values() for x in st],
+                                    self.group)
+
+    def _update_geometry_aux(self, beta: float, grid_size: int, n_proxy: int) -> None:
         for cate, state in self.states.items():
             aabb_ext = geom.extend_aabb(state.aabb, factor=0.5)
             ext = aabb_ext.cpu().numpy()
@@ -305,10 +345,13 @@ class Stage2Trainer:
         (the proxy mesh), ``NNN-<cate>-geo-colors.npy`` (colours at the
         vertices, seen along the SDF gradient at frame 0) and
         ``NNN-<cate>-feat.npy`` (16-dim unit features at the vertices)
-        (`trainer.py:490`). The fg files are the mesh Stage 3 starts from.
+        (`trainer.py:490`), by rank 0 of a group. The fg files are the mesh
+        Stage 3 starts from.
         The JAX trainer keeps one proxy mesh, the last field's, and writes
         it under the fg name with the first field's colours and features:
         for "comp" the bg mesh; the port writes each field's own."""
+        if not self.is_root:
+            return
         for cate, (verts, faces) in self.proxy_meshes.items():
             path = os.path.join(self.save_dir, f"{rnd:03d}-{cate}-geo.obj")
             save_obj(path, verts, faces)
@@ -337,22 +380,32 @@ class Stage2Trainer:
         defaults to the batcher's next one, ``draws`` to the step's
         (`DvrModel.reg_draws` from a generator seeded with the step
         number). Returns 0-d tensors: every weighted loss term, "total" and
-        "gnorm" (the gradients' global norm before clipping). Does not
-        advance ``current_steps``."""
+        "gnorm" (the gradients' global norm before clipping), the global
+        batch's. Does not advance ``current_steps``. ``batch`` is the global
+        batch; with a group each rank keeps its share and the gradients are
+        summed over the ranks before the optimiser reads them."""
         if batch is None:
             batch = self._next_batch()
+        share = None
+        if self.group is not None:
+            batch, share = sharding.shard_batch(batch, self.group)
         if draws is None:
             draws = self.model.reg_draws(
                 torch.Generator(self.device).manual_seed(self.current_steps))
         cfg = self._loss_config()
         weights = progress_schedule(cfg, self.current_steps)
         self.model.zero_grad(set_to_none=True)
-        loss_dict, _ = self.model.loss(batch, self.states, cfg, weights, draws)
+        with global_batch.over(share):
+            loss_dict, _ = self.model.loss(batch, self.states, cfg, weights, draws)
         total = sum(loss_dict.values())
         total.backward()
+        sharding.all_reduce_grads_(list(self.model.parameters()), self.group)
         grads = [p.grad for p in self.model.parameters() if p.grad is not None]
         gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         self.optimizer.step()
+        if share is not None:
+            loss_dict = sharding.reduce_metrics(loss_dict, share)
+            total = sum(loss_dict.values())
         return {**{k: v.detach() for k, v in loss_dict.items()}, "total": total.detach(),
                 "gnorm": gnorm}
 
@@ -408,16 +461,19 @@ class Stage2Trainer:
         geometry, export, the round's steps, the checkpoint every
         ``save_freq`` rounds and after the last; one ``Round NNN:`` line
         each (`trainer.py:468`). Each round's wall seconds go to
-        ``round_seconds``."""
-        logger = ScalarLogger(self.save_dir)
-        log_fn = log_fn or logger.log_loss_dict
+        ``round_seconds``. Of a group's ranks, rank 0 alone logs, traces,
+        writes and prints."""
+        root = self.is_root
+        logger = ScalarLogger(self.save_dir) if root else None
+        log_fn = (log_fn or logger.log_loss_dict) if root else None
         try:
             for rnd in range(self.current_round, self.opts["num_rounds"]):
                 t0 = time.time()
                 self._update_rollback_cache()
                 self.update_geometry_aux()
                 self.export_geometry(rnd)
-                with round_trace(self.save_dir, rnd, enabled=self.opts.get("profile", False),
+                with round_trace(self.save_dir, rnd,
+                                 enabled=root and self.opts.get("profile", False),
                                  device=self.device):
                     total = self.train_one_round(log_fn=log_fn)
                 self.current_round = rnd + 1
@@ -425,9 +481,12 @@ class Stage2Trainer:
                         rnd + 1 == self.opts["num_rounds"]):
                     self.save_checkpoint(self.current_round)
                 self.round_seconds.append(time.time() - t0)
-                print(f"Round {rnd:03d}: time={self.round_seconds[-1]:.3f}s loss={total:.4f}")
+                if root:
+                    print(f"Round {rnd:03d}: time={self.round_seconds[-1]:.3f}s "
+                          f"loss={total:.4f}")
         finally:
-            logger.close()
+            if logger is not None:
+                logger.close()
 
     # ------------------------------------------------------------------
     # rendering (`trainer.py:516`)
@@ -480,7 +539,10 @@ class Stage2Trainer:
         """``ckpt_NNNN.pth`` and ``ckpt_latest.pth``: "current_steps",
         "current_round", "params" (the flax tree), "states" ({cate: {aabb,
         near_far, proxy_pts}}), "opt_state" ({count, mu, nu} by state-dict
-        name), "opts"; dicts of numpy arrays and Python values only."""
+        name), "opts"; dicts of numpy arrays and Python values only. Of a
+        group's ranks, rank 0 alone writes."""
+        if not self.is_root:
+            return
         npy = lambda t: t.detach().cpu().numpy()
         opt = self.optimizer
         payload = {
@@ -522,4 +584,5 @@ class Stage2Trainer:
         if not reset_steps:
             self.current_steps = payload["current_steps"]
             self.current_round = payload["current_round"]
+        self.broadcast_state()
         return payload

@@ -38,6 +38,7 @@ from vidu4d_tpu_torch.ops.quaternion import (
     quaternion_translation_inverse,
     quaternion_translation_to_se3,
 )
+from vidu4d_tpu_torch.ops import global_batch
 from vidu4d_tpu_torch.ops.volume import compute_weights, sample_cam_rays, sample_pdf
 
 
@@ -342,13 +343,12 @@ class DynNeRF(nn.Module):
     def global_match(self, feat_px, feat_canonical, xyz_canonical,
                      num_candidates: int = 1024):
         """Softmax matching of pixel features against a stride subsample of
-        the canonical samples (`dyn_nerf.py:446`)."""
+        the canonical samples of the whole batch (`dyn_nerf.py:446`; the
+        global batch when the ranks split it: `global_batch.strided_rows`)."""
         shape = feat_px.shape
-        fc = feat_canonical.reshape(-1, shape[-1])
-        xc = xyz_canonical.reshape(-1, 3)
-        k = min(num_candidates, fc.shape[0])
-        stride = max(1, fc.shape[0] // k)
-        fc, xc = fc[::stride][:k], xc[::stride][:k]
+        fc, xc = global_batch.strided_rows(
+            [feat_canonical.reshape(-1, shape[-1]), xyz_canonical.reshape(-1, 3)],
+            num_candidates)
         score = (feat_px.reshape(-1, shape[-1]) @ fc.T) * torch.exp(self.logsigma)
         prob = torch.softmax(score, dim=-1)
         return (prob @ xc).reshape(shape[:-1] + (3,))

@@ -14,6 +14,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from vidu4d_tpu_torch.ops import global_batch
 from vidu4d_tpu_torch.ops.geometry import linspace01
 from vidu4d_tpu_torch.ops.numerics import safe_norm, safe_normalize
 
@@ -90,8 +91,10 @@ def render_pixel(field_dict: Dict[str, torch.Tensor], deltas: torch.Tensor) -> D
     """Per-pixel rendering with the visibility, eikonal, delta-skin and
     gauss-mask outputs (`volume.py:121`). "vis" is the visibility BCE
     weighted by the detached transmittance over its detached mean over the
-    whole batch; that mean is also returned as "vis_norm" (0-d), so that a
-    render made in chunks of rays can be joined into the whole one's."""
+    whole batch (`global_batch.mean_detached`: the global batch when the
+    ranks split it); that mean is also returned as "vis_norm" (0-d), so
+    that a render made in chunks of rays can be joined into the whole
+    one's."""
     weights, transmit = compute_weights(field_dict["density"], deltas)
     rendered = integrate(field_dict, weights)
     if "eikonal" in field_dict:
@@ -100,7 +103,7 @@ def render_pixel(field_dict: Dict[str, torch.Tensor], deltas: torch.Tensor) -> D
         rendered["delta_skin"] = torch.mean(field_dict["delta_skin"], dim=(-1, -2))
     transmit_d = transmit.detach()[..., None]
     vis_loss = -torch.mean(F.logsigmoid(field_dict["vis"]) * transmit_d, dim=-2)
-    rendered["vis_norm"] = torch.mean(transmit_d)
+    rendered["vis_norm"] = global_batch.mean_detached(transmit_d)
     rendered["vis"] = vis_loss / rendered["vis_norm"]
     if "gauss_density" in field_dict:
         gauss_w, _ = compute_weights(field_dict["gauss_density"], deltas)

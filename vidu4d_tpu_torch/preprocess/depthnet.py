@@ -13,12 +13,12 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from vidu4d_tpu_torch.convert import flax_conv_net_flat
+from vidu4d_tpu_torch.utils.io import savez_atomic
 from vidu4d_tpu_torch.preprocess.layers import SameConv2d, group_norm, load_net, weights_path
 from vidu4d_tpu_torch.preprocess.ops import resize
 
@@ -167,8 +167,10 @@ def ranking_loss(pred_disp: torch.Tensor, gt_depth: torch.Tensor, mask: torch.Te
 
 def save_weights(path: str, model: DepthNet) -> None:
     """``model``'s weights as the shipped ``depthnet_synthetic.npz`` holds
-    them (`depthnet.py:179`): flax keys under "params/", ``np.savez``."""
-    np.savez(path, **flax_conv_net_flat(model, "params/"))
+    them (`depthnet.py:179`): flax keys under "params/", ``np.savez``'s
+    bytes, written to a temporary file and moved into place (a killed run
+    never leaves a truncated npz)."""
+    savez_atomic(path, flax_conv_net_flat(model, "params/"))
 
 
 def load_depthnet(path: Optional[str] = None, device="cuda") -> Optional[DepthNet]:

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vidu4d_tpu_torch.convert import flax_conv_net_flat
+from vidu4d_tpu_torch.utils.io import savez_atomic
 from vidu4d_tpu_torch.preprocess.layers import SameConv2d, load_net, weights_path
 
 WEIGHTS_ENV, WEIGHTS_FILE = "VIDU4D_FEATNET_NPZ", "featnet_synthetic.npz"
@@ -92,8 +93,10 @@ def match_accuracy(feat1: torch.Tensor, feat2: torch.Tensor, xy1, xy2,
 
 def save_weights(path: str, model: FeatNet) -> None:
     """``model``'s weights as the shipped ``featnet_synthetic.npz`` holds
-    them (`featnet.py:111`): flax keys under "params/", ``np.savez``."""
-    np.savez(path, **flax_conv_net_flat(model, "params/"))
+    them (`featnet.py:111`): flax keys under "params/", ``np.savez``'s
+    bytes, written to a temporary file and moved into place (a killed run
+    never leaves a truncated npz)."""
+    savez_atomic(path, flax_conv_net_flat(model, "params/"))
 
 
 def load_featnet(path: Optional[str] = None, device="cuda") -> Optional[FeatNet]:

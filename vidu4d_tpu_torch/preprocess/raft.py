@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vidu4d_tpu_torch.convert import flax_conv_net_flat
+from vidu4d_tpu_torch.utils.io import savez_atomic
 from vidu4d_tpu_torch.preprocess.layers import SameConv2d, group_norm, load_net, weights_path
 from vidu4d_tpu_torch.preprocess.ops import pixel_grid, resize_hwc
 
@@ -233,10 +234,11 @@ def sequence_loss(preds: List[torch.Tensor], gt: torch.Tensor,
 
 def save_weights(model: RaftSmall, path: str) -> None:
     """``model``'s weights as the shipped ``raft_small_synthetic.npz`` holds
-    them (`raft.py:232`): flax keys without a prefix, ``np.savez_compressed``;
-    the directory is created."""
+    them (`raft.py:232`): flax keys without a prefix, ``np.savez_compressed``'s
+    bytes, written to a temporary file and moved into place (a killed run
+    never leaves a truncated npz); the directory is created."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    np.savez_compressed(path, **flax_conv_net_flat(model))
+    savez_atomic(path, flax_conv_net_flat(model), compressed=True)
 
 
 def load_raft(path: Optional[str] = None, device="cuda") -> Optional[RaftSmall]:

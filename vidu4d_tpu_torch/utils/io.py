@@ -174,3 +174,23 @@ def write_png(path: str, img: np.ndarray) -> None:
                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
                 + chunk(b"IDAT", zlib.compress(rows.tobytes()))
                 + chunk(b"IEND", b""))
+
+
+def savez_atomic(path: str, arrays: Dict[str, np.ndarray], compressed: bool = False) -> str:
+    """``np.savez`` (or ``np.savez_compressed``) of ``arrays`` to ``path``
+    (".npz" appended when missing, as numpy does) through a temporary file
+    in the same directory that is then moved into place: a run killed
+    while writing leaves the old file or none, never a truncated one. The
+    bytes are numpy's. Returns the path written."""
+    if not path.endswith(".npz"):
+        path += ".npz"
+    tmp = os.path.join(os.path.dirname(path) or ".",
+                       f".{os.path.basename(path)}.{os.getpid()}.tmp")
+    try:
+        with open(tmp, "wb") as f:
+            (np.savez_compressed if compressed else np.savez)(f, **arrays)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path
