@@ -216,7 +216,24 @@ Phases (any failed check raises, so the exit code is non-zero):
      memory;
  21. [c1] (`c1_measure`, measurement only): K1 at 512^2 on small, distant
      splats against `reference.py` in float64: the slab's rho2d error and
-     K1's alpha error (largest, share of pixels beyond 1/255).
+     K1's alpha error (largest, share of pixels beyond 1/255);
+ 22. [e2e] (`e2e_path`): the end-to-end quality run
+     (`vidu4d_tpu_torch.examples.synthetic_e2e.main`) at E2E_FLAGS: the
+     surfel GT video (16 frames at 64^2, K1), Stage 1, Stage 2, Stage 3
+     and the reference render, scored. Requires metrics.json with the JAX
+     main run's keys, all finite; the render's foreground PSNR
+     E2E_PSNR_MARGIN dB above an all-white frame's over the same GT
+     foreground and mask IoU >= E2E_MIN_IOU; every step of the schedule taken; launches K1 = GT
+     frames + Stage-3 steps + one eval render per round + the reference
+     render, K2 = Stage-3 steps, no plain call. Then both kernels against
+     their plain versions on GT frame 0's, the last Stage-3 step's (timed,
+     with pairs and bounds) and the reference render's inputs, kept from
+     the run. Prints each stage's seconds, the step medians, the white
+     frame's PSNR and the scores;
+ 23. [depth eval] (`depth_eval_path`): `preprocess.eval_depthnet.main` on
+     the shipped weights (DE_DEPTHNET) and
+     `preprocess.eval_depth_registration.main` (DE_REGISTRATION): every
+     number finite, K1 once per rendered scene and frame, nothing else.
 The last two lines are a JSON object of per-kernel results and
 {"ok": true, "device": {...}}.
 
@@ -550,6 +567,31 @@ MG_S2_STEP = {"metrics_rel": 3e-4, "mu_rel_to_max": 1e-5, "param_over_2lr": 1.0}
 # [c1]: K1 at C1_RES^2 on C1_SPLATS small distant splats against
 # reference.py in float64 (measurement only)
 C1_RES, C1_SPLATS = 512, 192
+# [e2e]: the port's end-to-end quality run (`examples.synthetic_e2e.main`)
+# at the JAX main run's width (64^2, 16 frames of the surfel GT, the
+# Stage-2 / Stage-3 options of the JAX script) with the schedule cut to
+# 2 x 60 Stage-2 and 4 x 75 Stage-3 steps. Gates: every metric finite, the
+# render's foreground PSNR E2E_PSNR_MARGIN dB above an all-white frame's
+# over the same GT foreground, mask IoU >= E2E_MIN_IOU; the launches K1 =
+# GT frames + Stage-3 steps + one eval render per round + the reference
+# render, K2 = Stage-3 steps, no plain call. Why this schedule (measured on
+# the H100, PERF.md's end-to-end findings): the warp AdamW's OneCycle warm-up spans 2
+# rounds, so a 2-round Stage 3 ends at its peak rate (2 x 50 steps: mask
+# IoU 0.4751); after only 2 x 20 Stage-2 steps Stage 3 keeps or loses the
+# object by chance (6 x 50 steps: IoU 0.9179 in one run, 0.0 in two
+# others; 8 x 50: 0.0094 and 0.0), while after 2 x 60 the 4 x 75 steps
+# reached 0.8964-0.9227 in three runs, with and without TF32 convolutions.
+# Why the foreground PSNR: in 300 steps the learnable background has only
+# reached grey (`learned_bg` in `[e2e]`, against the GT's white), which
+# holds the full-frame PSNR ~1.5 dB above the white frame's
+E2E_FLAGS = ["--res", "64", "--frames", "16", "--s2_rounds", "2", "--s2_iters", "60",
+             "--s3_rounds", "4", "--s3_iters", "75"]
+E2E_PSNR_MARGIN, E2E_MIN_IOU = 3.0, 0.7
+# [depth eval]: both depth scorers at a small size (DepthNet on 1 batch of 4
+# scenes at 64^2; the registration on 8 frames at 64^2): K1 once per scene
+# and frame, every number finite
+DE_DEPTHNET = ["--res", "64", "--batch", "4", "--rounds", "1"]
+DE_REGISTRATION = ["--res", "64", "--frames", "8"]
 
 
 def log(msg: str) -> None:
@@ -3554,6 +3596,184 @@ def c1_measure(rng):
     return out
 
 
+
+def e2e_path(tmp, rng):
+    """[e2e]: `examples.synthetic_e2e.main` on the card at E2E_FLAGS (GT
+    video -> Stage 1 -> Stage 2 -> Stage 3 -> the reference render,
+    scored), the launches counted from 0 and every Stage-2 and Stage-3
+    step timed (host clock, synchronised); requires the metrics of the JAX
+    main run's metrics.json, all finite, the foreground PSNR gate against
+    an all-white frame, the mask IoU gate and the launch counts. Then both
+    kernels against their plain versions on inputs kept from the run: GT
+    frame 0, the last Stage-3 step (timed, with its pairs and bounds), the
+    reference render (K2 on random cotangents). Returns (report, launch
+    counts, the step's kernel check)."""
+    import torch
+
+    from vidu4d_tpu_torch import kernels
+    from vidu4d_tpu_torch.engine import gs4d_trainer
+    from vidu4d_tpu_torch.engine.gs4d_trainer import Stage3Trainer
+    from vidu4d_tpu_torch.engine.trainer import Stage2Trainer
+    from vidu4d_tpu_torch.examples import synthetic_e2e
+    from vidu4d_tpu_torch.models.gaussian import deformable
+    from vidu4d_tpu_torch.ops.rasterize import api
+
+    sync = torch.cuda.synchronize
+    kept, gt, step_ms, stage3 = {}, [], {"stage2": [], "stage3": []}, []
+
+    def keep(fn, name, first_only):
+        def run(prepared, *a, **kw):
+            if not (first_only and name in kept):
+                kept[name] = {k: prepared[k].detach().clone() if torch.is_tensor(prepared[k])
+                              else prepared[k] for k in KERNEL_INPUTS}
+            return fn(prepared, *a, **kw)
+        return run
+
+    def timed(fn, key):
+        def run(self, *a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(self, *a, **kw)
+            sync()
+            step_ms[key].append((time.perf_counter() - t0) * 1e3)
+            if key == "stage3" and not stage3:
+                stage3.append(self)
+            return out
+        return run
+
+    def gt_video(fn):
+        def run(*a, **kw):
+            gt.append(fn(*a, **kw))
+            return gt[-1]
+        return run
+
+    # the eval renders and the reference render go through deformable's
+    # composite_batch; the last one kept is the reference render
+    wraps = {(api, "composite_batch"): lambda f: keep(f, "GT frame 0", True),
+             (gs4d_trainer, "composite_batch"): lambda f: keep(f, "last Stage-3 step", False),
+             (deformable, "composite_batch"): lambda f: keep(f, "reference render", False),
+             (synthetic_e2e, "make_gt_video"): gt_video,
+             (Stage2Trainer, "train_step"): lambda f: timed(f, "stage2"),
+             (Stage3Trainer, "train_step"): lambda f: timed(f, "stage3")}
+    originals = {key: getattr(*key) for key in wraps}
+    out_dir = os.path.join(tmp, "e2e")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        for (obj, k), wrap in wraps.items():
+            setattr(obj, k, wrap(originals[obj, k]))
+        res = synthetic_e2e.main(E2E_FLAGS + ["--out", out_dir, "--device", "cuda"])
+    finally:
+        for (obj, k), fn in originals.items():
+            setattr(obj, k, fn)
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.COUNTS)
+    with open(os.path.join(out_dir, "metrics.json")) as f:
+        metrics = json.load(f)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "results",
+                           "metrics.json")) as f:
+        jax_keys = set(json.load(f))
+    arg = lambda name: int(E2E_FLAGS[E2E_FLAGS.index(name) + 1])
+    frames, rounds = arg("--frames"), arg("--s3_rounds")
+    n_eval = min(frames - 1, 8)
+    gt_rgb, gt_masks, gt_depth = gt[0]
+    white = synthetic_e2e.score_renders(
+        {"rendered": np.ones_like(gt_rgb[:n_eval]), "mask": np.zeros_like(gt_rgb[:n_eval, ..., :1]),
+         "depth": np.zeros_like(gt_rgb[:n_eval, ..., :1])}, gt_rgb[:n_eval], gt_masks, gt_depth)
+    steps = {k: len(v) for k, v in step_ms.items()}
+    rep = {"wall_s": wall, "flags": E2E_FLAGS,
+           **{k: metrics[k] for k in ("stage1_s", "stage2_s", "stage3_s", "total_s")},
+           "stage2_round_s": res["stage2_round_s"], "stage3_round_s": res["stage3_round_s"],
+           "steps": steps,
+           **{f"{k}_step_ms_median": float(np.median(v)) for k, v in step_ms.items() if v},
+           **{f"{k}_step_ms_p90": float(np.percentile(v, 90)) for k, v in step_ms.items() if v},
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "learned_bg": stage3[0].deformer.background().tolist(),
+           "white_frame_psnr": white["render_psnr_mean"],
+           "white_frame_psnr_fg": white["render_psnr_fg_mean"], "counts": counts,
+           **{k: v for k, v in metrics.items() if k.startswith("render_")}}
+    log(f"[e2e] {json.dumps(rep)}")
+    want = {"tile_forward": frames + steps["stage3"] + rounds + 1,
+            "tile_backward": steps["stage3"], "tile_forward_plain": 0, "tile_backward_plain": 0}
+    numbers = [x for k, v in metrics.items() if k != "config"
+               for x in (v if isinstance(v, list) else [v])]
+    problems = []
+    if not jax_keys <= set(metrics):
+        problems.append(f"metrics.json lacks {sorted(jax_keys - set(metrics))}")
+    if not all(np.isfinite(x) for x in numbers):
+        problems.append("a non-finite metric")
+    if steps["stage3"] != arg("--s3_rounds") * arg("--s3_iters") or \
+            steps["stage2"] != arg("--s2_rounds") * arg("--s2_iters"):
+        problems.append(f"steps {steps}")
+    if counts != want:
+        problems.append(f"launch counts {counts}, expected {want}")
+    if not metrics["render_psnr_fg_mean"] >= white["render_psnr_fg_mean"] + E2E_PSNR_MARGIN:
+        problems.append(f"foreground PSNR {metrics['render_psnr_fg_mean']} < the white "
+                        f"frame's {white['render_psnr_fg_mean']:.3f} + {E2E_PSNR_MARGIN}")
+    if not metrics["render_mask_iou"] >= E2E_MIN_IOU:
+        problems.append(f"mask IoU {metrics['render_mask_iou']} < {E2E_MIN_IOU}")
+    # the kernels against their plain versions on the run's own inputs
+    # (after the counts are read: these launches are not the path's)
+    checks = {}
+    for name in ("GT frame 0", "last Stage-3 step", "reference render"):
+        if name not in kept:
+            problems.append(f"no kernel inputs kept for {name}")
+            continue
+        b = kept.pop(name)
+        checks[name] = compare_kernels(b, rng, f"e2e: {name}",
+                                       timed=name == "last Stage-3 step")
+        checks[name]["frames"] = b["tile_start"].shape[0] // b["tiles_per_frame"]
+        checks[name]["n_extra"] = b["n_extra"]
+    shapes = {k: (c["frames"], c["n_extra"]) for k, c in checks.items()}
+    if shapes != {"GT frame 0": (1, 0), "last Stage-3 step": (2, 2),
+                  "reference render": (n_eval, 0)}:
+        problems.append(f"kernel checks' (frames, extra channels) {shapes}")
+    if problems:
+        raise AssertionError(f"[e2e] {problems}")
+    rep["kernel_checks"] = {k: {x: c[x] for x in ("fwd_max_abs_err", "bwd_max_abs_err",
+                                                   "entries", "max_tile")}
+                            for k, c in checks.items()}
+    torch.cuda.empty_cache()
+    return rep, counts, checks["last Stage-3 step"]
+
+
+def depth_eval_path(tmp):
+    """[depth eval]: `preprocess.eval_depthnet.main` on the shipped weights
+    (DE_DEPTHNET) and `preprocess.eval_depth_registration.main`
+    (DE_REGISTRATION) on the card: every number finite, K1 launched once
+    per rendered scene and frame, nothing else. Returns (report, launch
+    counts)."""
+    import torch
+
+    from vidu4d_tpu_torch import kernels
+    from vidu4d_tpu_torch.preprocess import eval_depth_registration, eval_depthnet
+    from vidu4d_tpu_torch.preprocess.layers import WEIGHTS_DIR
+
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    dn = eval_depthnet.main(["--weights", os.path.join(WEIGHTS_DIR, ST_SHIPPED["depthnet"]),
+                             *DE_DEPTHNET, "--device", "cuda"])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    reg = eval_depth_registration.main([*DE_REGISTRATION, "--out",
+                                        os.path.join(tmp, "registration.json"),
+                                        "--device", "cuda"])
+    t2 = time.perf_counter()
+    counts = dict(kernels.COUNTS)
+    arg = lambda flags, name: int(flags[flags.index(name) + 1])
+    scenes = arg(DE_DEPTHNET, "--batch") * arg(DE_DEPTHNET, "--rounds")
+    want = {"tile_forward": scenes + arg(DE_REGISTRATION, "--frames"), "tile_backward": 0,
+            "tile_forward_plain": 0, "tile_backward_plain": 0}
+    rep = {"eval_depthnet": dn, "eval_depth_registration": reg,
+           "eval_depthnet_s": t1 - t0, "eval_depth_registration_s": t2 - t1, "counts": counts}
+    log(f"[depth eval] {json.dumps(rep)}")
+    numbers = list(dn.values()) + [v for errs in reg.values() for v in errs.values()]
+    if counts != want or not all(np.isfinite(x) for x in numbers):
+        raise AssertionError(f"[depth eval] launch counts {counts} (expected {want}) or a "
+                             f"non-finite number: {rep}")
+    return rep, counts
+
 def main() -> int:
     import torch
 
@@ -3720,6 +3940,14 @@ def main() -> int:
         log(f"[multi-gpu wall] {time.perf_counter() - t0:.1f} s")
         # [c1]: K1 against exact math on small, distant splats
         c1_rep = c1_measure(rng)
+        # [e2e]: GT video -> Stage 1 -> 2 -> 3 -> render, scored; then the
+        # two depth scorers
+        t0 = time.perf_counter()
+        e2e_rep, e2e_counts, e2e_check = e2e_path(tmp, rng)
+        log(f"[e2e wall] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        de_rep, de_counts = depth_eval_path(tmp)
+        log(f"[depth eval wall] {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3775,7 +4003,16 @@ def main() -> int:
          "multi_gpu_max_abs_err": mg_rep["kernel_check"][f"{key}_max_abs_err"],
          "multi_gpu_ms": mg_rep["kernel_check"][f"{key}_ms"],
          "multi_gpu_plain_ms": mg_rep["kernel_check"][f"{key}_plain_ms"],
-         "multi_gpu_bound_ms": mg_rep["kernel_check"]["bounds"][name]["bound_ms"]}
+         "multi_gpu_bound_ms": mg_rep["kernel_check"]["bounds"][name]["bound_ms"],
+         # [e2e]: the launches of the whole run (K1: GT frames, steps, eval
+         # and reference renders; K2: steps); both kernels against their
+         # plain versions on the last Stage-3 step's inputs
+         "e2e_launches": e2e_counts[name],
+         "e2e_max_abs_err": e2e_check[f"{key}_max_abs_err"],
+         "e2e_ms": e2e_check[f"{key}_ms"], "e2e_plain_ms": e2e_check[f"{key}_plain_ms"],
+         "e2e_bound_ms": e2e_check["bounds"][name]["bound_ms"],
+         # [depth eval]: DepthNet's scenes and the registration's frames
+         "depth_eval_launches": de_counts[name]}
         for name, key, replaces in (
             ("tile_forward", "fwd", "vidu4d_tpu/ops/rasterize/pallas_kernel.py:111"),
             ("tile_backward", "bwd", "vidu4d_tpu/ops/rasterize/pallas_backward.py:95"))
@@ -3839,7 +4076,19 @@ def main() -> int:
         f"{mg_rep['stage2']['one']['step_ms_median']:.3f} ms one process, "
         f"{mg_rep['stage2']['rank0']['step_ms_median']:.3f} ms per rank; c1 at {C1_RES}^2: "
         f"max alpha err {c1_rep['max_alpha_err']:.3g}, rho2d err "
-        f"{c1_rep['max_rho2d_err_poly']:.3g} (centred {c1_rep['max_rho2d_err_centred']:.3g})")
+        f"{c1_rep['max_rho2d_err_poly']:.3g} (centred {c1_rep['max_rho2d_err_centred']:.3g}); "
+        f"e2e ({' '.join(E2E_FLAGS)}): {e2e_rep['wall_s']:.1f} s (stage 1 "
+        f"{e2e_rep['stage1_s']} s, stage 2 {e2e_rep['stage2_s']} s, stage 3 "
+        f"{e2e_rep['stage3_s']} s), steps {e2e_rep['stage2_step_ms_median']:.3f} / "
+        f"{e2e_rep['stage3_step_ms_median']:.3f} ms (stage 2 / 3), PSNR "
+        f"{e2e_rep['render_psnr_mean']} dB (white frame {e2e_rep['white_frame_psnr']:.3f}), "
+        f"foreground {e2e_rep['render_psnr_fg_mean']} dB (white "
+        f"{e2e_rep['white_frame_psnr_fg']:.3f}), mask IoU {e2e_rep['render_mask_iou']}; "
+        f"depth eval: order acc "
+        f"{de_rep['eval_depthnet']['order_acc']:.3f} (flow parallax "
+        f"{de_rep['eval_depthnet']['flow_parallax_order_acc']:.3f}), pair rotation error "
+        f"{de_rep['eval_depth_registration']['depthnet']['pair_rot_err_deg_mean']} deg "
+        f"(GT depth {de_rep['eval_depth_registration']['gt_depth']['pair_rot_err_deg_mean']})")
     log(f"[wall] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

@@ -136,7 +136,8 @@ def test_port_imports_no_jax():
     among them, the static 2DGS path's and Stage 2's too, the skeleton
     and the NVP warp, Stage 1's pipeline, RAFT, segmentation and canonical
     fit, the data-parallel group, host map, visualisation and native
-    gather), and chip_smoke.py, imports
+    gather, the end-to-end quality run and the depth scorers), and
+    chip_smoke.py, imports
     without jax and without any module of the JAX package (in a fresh
     process)."""
     code = (
@@ -154,7 +155,8 @@ def test_port_imports_no_jax():
         "    'preprocess.segment', 'preprocess.canonical', 'preprocess.train_raft',\n"
         "    'preprocess.train_featnet', 'preprocess.train_depthnet',\n"
         "    'preprocess.train_common', 'parallel.sharding', 'utils.host_map', 'utils.vis',\n"
-        "    'data.native')}\n"
+        "    'data.native', 'examples.synthetic_e2e', 'preprocess.eval_depthnet',\n"
+        "    'preprocess.eval_depth_registration')}\n"
         "assert entry <= set(mods), sorted(entry - set(mods))\n"
         "import chip_smoke\n"
         "assert len(mods) >= 30, mods\n"
