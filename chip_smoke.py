@@ -45,6 +45,12 @@ Phases (any failed check raises, so the exit code is non-zero):
      the work lists (no item longer than SEG, every entry covered once,
      items within the grid), the (entry, pixel) pairs these inputs need and
      each kernel's bound (`kernel_bounds`);
+     then [tile] (`tile_path`): the same inputs binned at tile sides 8 and
+     32 (TILE_PHASE_SIDES; the step itself runs at 16), both kernels held
+     to their plain versions there (timed, pairs, bounds, work lists), and
+     one small step (64^2, 4k surfels) at each side on the card against
+     the CPU, its launches counted from 0; the kernels line gains the
+     tile8_* / tile32_* fields;
   7. main path: reset the launch counters, run 2 warm-up + 8 timed steps,
      then 2 steps with the 2DGS terms, read the counters: both kernels must
      have launched and no plain version run; every loss term of the
@@ -389,9 +395,11 @@ STATIC_SMALL_ROWS, STATIC_SMALL_ROW_TOL = 4, 2e-2
 # after densify (size rules on) and the outlier prune at 40
 ROUND_CHECKS = {"eval render after the hooks of round 1": ("render", 20),
                 "step after densify and outlier@40": ("step", 40)}
+# [tile]: the tile sides held on the main path's workload besides 16
+TILE_PHASE_SIDES = (8, 32)
 # the keys of a prepared batch that compare_kernels reads
 KERNEL_INPUTS = ("slab", "tile_start", "tile_count", "bg", "tiles_x", "tiles_per_frame",
-                 "n_extra")
+                 "n_extra", "tile")
 # the hooks on the CPU and on the card, from one state
 HOOK_CAP, HOOK_ALIVE, HOOK_TOL = 8192, 4096, 1e-6
 # the reduced configuration: no warp AdamW, rgb/depth/mask losses only, no flow
@@ -618,10 +626,11 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def random_scene(rng, n, res, frames, n_extra, device, deep=False):
+def random_scene(rng, n, res, frames, n_extra, device, deep=False, tile=16):
     """Seeded splat projections (M, P) + colours for the kernel checks.
-    deep: every splat projects into the middle of one 16x16 tile, with low
-    opacities, so per-pixel chains run for hundreds of entries."""
+    deep: every splat projects into the middle of one tile (of side
+    ``tile``), with low opacities, so per-pixel chains run for hundreds of
+    entries."""
     import torch
 
     from vidu4d_tpu_torch.ops.rasterize.common import project_splats
@@ -633,7 +642,7 @@ def random_scene(rng, n, res, frames, n_extra, device, deep=False):
         means[:, 2] = 2.0 + rng.uniform(0.0, 1.0, size=n)
         scales = np.full((n, 2), 0.01)
         opac = rng.uniform(0.005, 0.02, size=n)
-        shift = 8.0  # principal point in the middle of a tile
+        shift = tile / 2.0  # principal point in the middle of a tile
     else:
         means = rng.normal(size=(n, 3)) * 0.6 + np.array([0.0, 0.0, 3.0])
         scales = np.exp(rng.normal(size=(n, 2)) * 0.5) * 0.04
@@ -652,11 +661,12 @@ def random_scene(rng, n, res, frames, n_extra, device, deep=False):
     return proj, t(colors), t(opac), bg
 
 
-def chain_batch(rng, seg, n_extra, device):
-    """Kernel inputs of one 64x64 frame built row by row, for the cases of
-    the work-item split (items of ``seg`` entries). Each row's response is
-    nearly constant over the tile (A = (0, 0, 1), B and C ~1e-4, so alpha
-    is opacity to 2e-4 and depth = q), which places every pixel's stop:
+def chain_batch(rng, seg, n_extra, device, tile=16):
+    """Kernel inputs of one frame of 4 x 4 tiles of side ``tile`` built row
+    by row, for the cases of the work-item split (items of ``seg``
+    entries). Each row's response is nearly constant over the tile (A =
+    (0, 0, 1), B and C ~1e-4, so at 64 x 64 alpha is opacity to 2e-4 and
+    depth = q), which places every pixel's stop:
       tile 0: stops on the first entry of its second item (rank seg);
       tile 1: stops on the last entry of its first item (rank seg - 1);
       tile 2: 2 * seg low-alpha entries, an exact multiple of seg;
@@ -701,7 +711,7 @@ def chain_batch(rng, seg, n_extra, device):
     return dict(slab=t(np.concatenate(blocks)), tile_start=t(starts, torch.int32),
                 tile_count=t(counts, torch.int32), bg=t(rng.uniform(size=3 + n_extra)),
                 tiles_x=tiles_x, tiles_y=4, tiles_per_frame=tiles_per_frame,
-                n_extra=n_extra)
+                n_extra=n_extra, tile=tile)
 
 
 def check_forward(plain, kernel, name):
@@ -754,7 +764,7 @@ def compare_kernels(batch, rng, name, reps_k=20, reps_p=2, timed=False):
     from vidu4d_tpu_torch.ops.rasterize import tile_backward as tb
     from vidu4d_tpu_torch.ops.rasterize import tile_forward as tf
 
-    geo = (batch["tiles_x"], batch["tiles_per_frame"], batch["n_extra"])
+    geo = (batch["tiles_x"], batch["tiles_per_frame"], batch["n_extra"], batch["tile"])
     fw_args = (batch["slab"], batch["tile_start"], batch["tile_count"], batch["bg"])
     col_k, aux_k = tf.forward_tiles(*fw_args, *geo)
     torch.cuda.synchronize()
@@ -764,7 +774,8 @@ def compare_kernels(batch, rng, name, reps_k=20, reps_p=2, timed=False):
 
     nt = batch["tile_start"].shape[0]
     gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
-    cot = torch.randn((nt, 256, 10 + batch["n_extra"]), device="cuda", generator=gen)
+    cot = torch.randn((nt, batch["tile"] ** 2, 10 + batch["n_extra"]), device="cuda",
+                      generator=gen)
     resid = aux_k[..., 8:12].contiguous()
     bw_args = (batch["slab"], batch["tile_start"], batch["tile_count"], cot, resid)
     g_k = tb.backward_tiles(*bw_args, *geo)
@@ -776,7 +787,7 @@ def compare_kernels(batch, rng, name, reps_k=20, reps_p=2, timed=False):
            "bwd_max_abs_err": bwd_err, "bwd_max_abs_g": g_max,
            "bwd_bound_share": bwd_bound_share,
            "entries": int(batch["tile_count"].sum()),
-           "max_tile": int(batch["tile_count"].max())}
+           "max_tile": int(batch["tile_count"].max()), "tile": batch["tile"]}
     res["pairs"] = needed_pairs(batch, plain[1])
     res["bounds"] = kernel_bounds(batch, res["pairs"])
     if timed:
@@ -870,7 +881,7 @@ def needed_pairs(batch, aux):
     needs the response of each pixel's entries below its n_contrib
     (bwd_responses) and differentiates the included pairs. bwd_walked is
     what the backward kernel walks: every tile's entries below count_eff,
-    its largest n_contrib, for all 256 pixels."""
+    its largest n_contrib, for all of the tile's pixels."""
     import torch
 
     from vidu4d_tpu_torch.ops.rasterize import common
@@ -881,7 +892,7 @@ def needed_pairs(batch, aux):
     nt = start.shape[0]
     ncon = aux[..., 9]
     pxf, pyf = tf._pixel_centers(nt, batch["tiles_x"], batch["tiles_per_frame"],
-                                 slab.device)
+                                 slab.device, batch["tile"])
     stop = torch.full_like(ncon, -1.0)
     included = 0
     k = torch.arange(tf.CHUNK, device=slab.device)
@@ -903,7 +914,7 @@ def needed_pairs(batch, aux):
     count_eff = tb.effective_counts(count, aux[..., 8:12])
     return {"fwd_visited": int(visited.sum()), "included": included,
             "bwd_responses": int(ncon.double().sum()),
-            "bwd_walked": int(count_eff.sum()) * 256,
+            "bwd_walked": int(count_eff.sum()) * batch["tile"] ** 2,
             "count_eff_entries": int(count_eff.sum())}
 
 
@@ -913,7 +924,7 @@ def kernel_bounds(batch, pairs):
     (inputs read once, outputs written once) over 3.35 TB/s."""
     x = batch["n_extra"]
     nt = batch["tile_start"].shape[0]
-    px_n = 256
+    px_n = batch["tile"] ** 2
     fwd_ops = OPS_RESPONSE * pairs["fwd_visited"] + (29 + 2 * x) * pairs["included"]
     bwd_ops = OPS_RESPONSE * pairs["bwd_responses"] + (105 + 4 * x) * pairs["included"]
     row = 32 * 4
@@ -1060,11 +1071,11 @@ def build_trainer(tmp, device, surfels, res, frames=2, reduced=False, capacity=N
     return trainer, batch
 
 
-def small_step_vs_cpu(tmp, use_2dgs_reg, fg_motion="gs-bob"):
+def small_step_vs_cpu(tmp, use_2dgs_reg, fg_motion="gs-bob", raster_tile=16):
     """One step at 64^2 / 4k surfels in the default configuration (with
-    ``fg_motion``) on the card (kernels) and on the CPU (plain versions)
-    from the same state and batch: the port's own reference on a small
-    input. For a motion other than gs-bob, at most STATIC_SMALL_ROWS
+    ``fg_motion`` and tile side ``raster_tile``) on the card (kernels) and
+    on the CPU (plain versions) from the same state and batch: the port's
+    own reference on a small input. For a motion other than gs-bob, at most STATIC_SMALL_ROWS
     surfels may have a gradient beyond the bound, each within
     STATIC_SMALL_ROW_TOL of the field's max (the static check's rule; on
     the H100, gs-denseSE3 had one surfel's xyz gradient at 5.8e-3 of the
@@ -1076,11 +1087,11 @@ def small_step_vs_cpu(tmp, use_2dgs_reg, fg_motion="gs-bob"):
     from vidu4d_tpu_torch.models.gaussian.surfels import SurfelState, SurfelParams
     from vidu4d_tpu_torch.models.gaussian.optimizer import gs_adam_init
 
-    tag = f"2dgs{int(use_2dgs_reg)}_{fg_motion}"
+    tag = f"2dgs{int(use_2dgs_reg)}_{fg_motion}_tile{raster_tile}"
     cpu, batch = build_trainer(os.path.join(tmp, f"small_cpu_{tag}"), "cpu", 4096, 64,
-                               fg_motion=fg_motion)
+                               fg_motion=fg_motion, raster_tile=raster_tile)
     gpu, _ = build_trainer(os.path.join(tmp, f"small_gpu_{tag}"), "cuda", 4096, 64,
-                           fg_motion=fg_motion)
+                           fg_motion=fg_motion, raster_tile=raster_tile)
     gpu.deformer.load_state_dict(cpu.deformer.state_dict())
     s = cpu.surfels
     gpu.surfels = SurfelState(
@@ -1153,7 +1164,8 @@ def small_step_vs_cpu(tmp, use_2dgs_reg, fg_motion="gs-bob"):
         if not ok:
             bad.append(f"param {k}")
     out["deformer_param_diff_over_2lr"] = worst
-    label = f"2dgs={use_2dgs_reg}" + ("" if fg_motion == "gs-bob" else f" {fg_motion}")
+    label = (f"2dgs={use_2dgs_reg}" + ("" if fg_motion == "gs-bob" else f" {fg_motion}")
+             + ("" if raster_tile == 16 else f" raster_tile={raster_tile}"))
     log(f"[small step cpu-vs-gpu {label}] {json.dumps(out)}")
     if bad:
         raise AssertionError(f"small step ({label}): {bad} differ beyond their tolerance")
@@ -1161,6 +1173,50 @@ def small_step_vs_cpu(tmp, use_2dgs_reg, fg_motion="gs-bob"):
             or counts["tile_forward_plain"] or counts["tile_backward_plain"]):
         raise AssertionError(f"small step ({label}) on the card: launches {counts}")
     return counts
+
+
+def tile_path(tmp, rng, trainer, batch):
+    """[tile]: the tile sides TILE_PHASE_SIDES on the main path's workload.
+    For each side: both kernels against their plain versions on the kernel
+    inputs of ``trainer``'s step on ``batch`` binned at that side (timed,
+    with their pairs and bounds), the tile depths and both work lists;
+    then one small step at that side on the card against the CPU
+    (`small_step_vs_cpu`), its launches counted from 0. Returns {side:
+    (kernel check, the card step's launches)}."""
+    import torch
+
+    from vidu4d_tpu_torch.ops.rasterize import tile_backward as tb
+    from vidu4d_tpu_torch.ops.rasterize import tile_forward as tf
+
+    out = {}
+    cfg = trainer.raster_cfg
+    for side in TILE_PHASE_SIDES:
+        trainer.raster_cfg = cfg._replace(tile=side)
+        try:
+            with torch.no_grad():
+                b, _ = trainer.render_inputs(batch)
+        finally:
+            trainer.raster_cfg = cfg
+        if b["tile"] != side or b["tiles_x"] != -(-MAIN_RES // side):
+            raise AssertionError(f"[tile {side}] binned at {b['tile']}, {b['tiles_x']} tiles")
+        label = f"tile {side}"
+        log(f"[tiles {label}] {json.dumps(tile_histogram(b['tile_count']))}")
+        cmp = compare_kernels(b, rng, f"{label}: main path 200k 256x256 2 frames X=2",
+                              reps_p=1, timed=True)
+        _, aux = tf.forward_tiles_plain(b["slab"], b["tile_start"], b["tile_count"], b["bg"],
+                                        b["tiles_x"], b["tiles_per_frame"], b["n_extra"],
+                                        side)
+        work_list_report(b["tile_count"], b["slab"].shape[0], f"{label} fwd")
+        work_list_report(tb.effective_counts(b["tile_count"], aux[..., 8:12]),
+                         b["slab"].shape[0], f"{label} bwd")
+        log(f"[pairs {label}] {json.dumps(cmp['pairs'])}")
+        log(f"[bounds {label}] {json.dumps(cmp['bounds'])}")
+        del b, aux
+        counts = small_step_vs_cpu(tmp, False, raster_tile=side)
+        log(f"[counts {label}] {json.dumps(counts)}")
+        out[side] = (cmp, counts)
+        torch.cuda.empty_cache()
+    return out
 
 
 def run_steps(trainer, batch, phases, label):
@@ -3844,6 +3900,12 @@ def main() -> int:
         log(f"[bounds main] {json.dumps(bounds)}")
         del main_batch, aux_plain
 
+        # [tile]: the kernels at tile 8 and 32 on this workload, and a small
+        # step at each side on the card against the CPU
+        t0 = time.perf_counter()
+        tile_rep = tile_path(tmp, rng, trainer, batch)
+        log(f"[tile wall] {time.perf_counter() - t0:.1f} s")
+
         # the main path, default configuration
         before = {k: p.detach().clone() for k, p in trainer.deformer.named_parameters()}
         warm, timed, reg = MAIN_STEPS
@@ -4012,7 +4074,15 @@ def main() -> int:
          "e2e_ms": e2e_check[f"{key}_ms"], "e2e_plain_ms": e2e_check[f"{key}_plain_ms"],
          "e2e_bound_ms": e2e_check["bounds"][name]["bound_ms"],
          # [depth eval]: DepthNet's scenes and the registration's frames
-         "depth_eval_launches": de_counts[name]}
+         "depth_eval_launches": de_counts[name],
+         # [tile]: each side's small card step's launches; both kernels
+         # against their plain versions on the main workload binned at it
+         **{f"tile{side}_{k}": v for side, (cmp, cnt) in tile_rep.items()
+            for k, v in (("launches", cnt[name]),
+                         ("max_abs_err", cmp[f"{key}_max_abs_err"]),
+                         ("ms", cmp[f"{key}_ms"]), ("plain_ms", cmp[f"{key}_plain_ms"]),
+                         ("bound_ms", cmp["bounds"][name]["bound_ms"]),
+                         ("bound_by", cmp["bounds"][name]["bound_by"]))}}
         for name, key, replaces in (
             ("tile_forward", "fwd", "vidu4d_tpu/ops/rasterize/pallas_kernel.py:111"),
             ("tile_backward", "bwd", "vidu4d_tpu/ops/rasterize/pallas_backward.py:95"))
@@ -4021,7 +4091,10 @@ def main() -> int:
         f"{float(np.median(red_ms)):.3f} ms (reduced); "
         f"tile_forward {main_cmp['fwd_ms']:.3f} ms (plain {main_cmp['fwd_plain_ms']:.3f}); "
         f"tile_backward {main_cmp['bwd_ms']:.3f} ms (plain {main_cmp['bwd_plain_ms']:.3f}); "
-        f"round path at capacity {ROUND_CAPACITY}: median step "
+        + "".join(f"at tile {side}: K1 {c['fwd_ms']:.3f} ms (plain {c['fwd_plain_ms']:.3f}), "
+                  f"K2 {c['bwd_ms']:.3f} ms (plain {c['bwd_plain_ms']:.3f}); "
+                  for side, (c, _) in tile_rep.items())
+        + f"round path at capacity {ROUND_CAPACITY}: median step "
         f"{round_rep['step_ms_median']:.3f} ms, rounds {round_rep['round_wall_ms']} ms "
         f"+ {round_rep['k3_round_ms']} ms; command line: train {cli_rep['train_ms']:.1f} ms "
         f"(median step {cli_rep['step_ms_median']:.3f} ms), render {CLI_RENDER_RES}^2 "

@@ -133,7 +133,7 @@ def test_pair_sampler_matches_pair_batcher(tmp_path):
 @pytest.mark.parametrize("bad", [
     {"gs_init_ply": "point_cloud.ply"},
     {"fg_motion": "gs-dense"}, {"pixels_per_image": 16}, {"ngpu": 2},
-    {"raster_impl": "tiles"}, {"raster_tile": 8},
+    {"raster_impl": "tiles"}, {"raster_tile": 12},
 ])
 def test_unported_options_raise(tmp_path, bad):
     """Options the port does not take raise NotImplementedError; ngpu 2,

@@ -28,13 +28,14 @@
 //      the reference's back-to-front walk over the item's entries, 32 slab
 //      rows per step, staged by TMA into a two-stage ring. Each entry's
 //      column sums are a two-half warp reduce-scatter (16 columns each, so
-//      only 16 values are live at once) and a shared-memory pass over the
-//      8 warp partials, written as the entry's grad row. Every entry belongs
+//      only 16 values are live at once) of the sums over each thread's
+//      pixels, and a shared-memory pass over the warp partials, written as
+//      the entry's grad row. Every entry belongs
 //      to exactly one item, so there are no atomics; the entry -> splat
 //      reduction is an index_add_ in PyTorch.
 //
-// cot  (T, 256, 10 + n_extra): gC(3) gD gA gN(3) gBGdot gDist gX(n_extra)
-// resid(T, 256, 4):            T_fin, n_contrib, S1, S2
+// cot  (T, tile^2, 10 + n_extra): gC(3) gD gA gN(3) gBGdot gDist gX(n_extra)
+// resid(T, tile^2, 4):            T_fin, n_contrib, S1, S2
 // grad (E, 32): rows of the entries below count_eff are overwritten; the
 //               caller zero-fills it.
 #include "tile_common.cuh"
@@ -42,10 +43,24 @@
 namespace vidu4d {
 
 constexpr int kGroup = 32;  // slab rows per staged step of the gradient walk
-constexpr int kWarps = kPix / 32;
+
 // dynamic shared memory of B2: the row ring, the warp partials, gX
-constexpr int kGradSmemFloats = 2 * kGroup * kF + kWarps * kGroup * kF;
-constexpr int kGradSmemMax = (kGradSmemFloats + kMaxExtra * kPix) * (int)sizeof(float);
+template <int TILE>
+struct GradSmem {
+  static constexpr int kWarps = TileShape<TILE>::kThreads / 32;
+  static constexpr int kFloats = 2 * kGroup * kF + kWarps * kGroup * kF;
+  static constexpr int kMaxBytes =
+      (kFloats + kMaxExtra * TileShape<TILE>::kPix) * (int)sizeof(float);
+};
+
+// sum over a thread's N pixels of f(j), in pixel order (f(0) alone at N = 1)
+template <int N, class F>
+__device__ __forceinline__ float pix_sum(F f) {
+  float s = f(0);
+#pragma unroll
+  for (int j = 1; j < N; ++j) s += f(j);
+  return s;
+}
 
 // One step of the warp reduce-scatter: lanes l and l ^ OFF each keep one
 // half of their 2*OFF values and add the partner's copy of that half.
@@ -75,9 +90,10 @@ struct PixelCot {
   float t_fin, n_contrib, s1, s2, a_tot;
 };
 
+template <int TILE>
 __device__ __forceinline__ PixelCot load_cot(const float* cot, const float* resid,
-                                             int tile, int n_extra) {
-  const int lin = threadIdx.x;
+                                             int tile, int lin, int n_extra) {
+  constexpr int kPix = TileShape<TILE>::kPix;
   const float* cp = cot + ((size_t)tile * kPix + lin) * (10 + n_extra);
   const float* rp = resid + ((size_t)tile * kPix + lin) * 4;
   PixelCot q;
@@ -93,24 +109,38 @@ __device__ __forceinline__ PixelCot load_cot(const float* cot, const float* resi
 
 // B1: P and L of one item (items that are not their tile's first);
 // pl[item][0][pixel] = P, pl[item][1][pixel] = L
-__global__ void __launch_bounds__(kPix)
+template <int TILE>
+__global__ void __launch_bounds__(TileShape<TILE>::kThreads)
 tile_bwd_transmit(const float* __restrict__ slab, const int* __restrict__ tile_start,
                   const int* __restrict__ count_eff, const int* __restrict__ item_off,
                   int n_tiles, const float* __restrict__ cot,
                   const float* __restrict__ resid, float* __restrict__ pl,
                   int tiles_x, int tiles_per_frame, int n_extra) {
+  using S = TileShape<TILE>;
+  constexpr int kPix = S::kPix;
   __shared__ __align__(128) float rows[2 * kChunk * kF];
   __shared__ __align__(8) uint64_t bar[2];
   Item it;
   if (!find_item(item_off, n_tiles, blockIdx.x, &it) || it.seg == 0) return;
-  const Pixel px = pixel_of(it.tile, tiles_x, tiles_per_frame);
-  const PixelCot q = load_cot(cot, resid, it.tile, n_extra);
-  float gX[kMaxExtra];
-  const float* cpx = cot + ((size_t)it.tile * kPix + threadIdx.x) * (10 + n_extra) + 10;
-#pragma unroll
-  for (int e = 0; e < kMaxExtra; ++e) gX[e] = (e < n_extra) ? cpx[e] : 0.f;
-
   const int rank0 = it.seg * kSeg;
+  Pixel px[S::kPPT];
+  PixelCot q[S::kPPT];
+  float gX[S::kPPT][kMaxExtra];
+  float P[S::kPPT], L[S::kPPT];
+  bool active[S::kPPT];
+#pragma unroll
+  for (int j = 0; j < S::kPPT; ++j) {
+    const int lin = threadIdx.x + j * S::kThreads;
+    px[j] = pixel_of<TILE>(it.tile, lin, tiles_x, tiles_per_frame);
+    q[j] = load_cot<TILE>(cot, resid, it.tile, lin, n_extra);
+    const float* cpx = cot + ((size_t)it.tile * kPix + lin) * (10 + n_extra) + 10;
+#pragma unroll
+    for (int e = 0; e < kMaxExtra; ++e) gX[j][e] = (e < n_extra) ? cpx[e] : 0.f;
+    P[j] = 1.0f;
+    L[j] = 0.0f;
+    active[j] = (float)rank0 < q[j].n_contrib;
+  }
+
   const float* src = slab + (size_t)(tile_start[it.tile] + rank0) * kF;
   const int n = min(kSeg, count_eff[it.tile] - rank0);
   const int nc = (n + kChunk - 1) / kChunk;
@@ -121,78 +151,99 @@ tile_bwd_transmit(const float* __restrict__ slab, const int* __restrict__ tile_s
     if (nc > 1) ring.load(1, src + kChunk * kF, min(kChunk, n - kChunk));
   }
 
-  float P = 1.0f, L = 0.0f;
-  bool active = (float)rank0 < q.n_contrib;
   int c = 0;
   for (; c < nc; ++c) {
     ring.wait(c);
     const float* st = ring.stage(c);
     const int m = min(kChunk, n - c * kChunk);
-    if (active) {
-      for (int k = 0; k < m; ++k) {
-        if ((float)(rank0 + c * kChunk + k) >= q.n_contrib) {
-          active = false;
-          break;
-        }
-        const float* row = st + k * kF;
-        const Response r = splat_response(row, px.x, px.y, px.q);
-        const float alpha = min_nan(r.alpha_raw, kAlphaClamp);
-        if (!is_candidate(r, alpha)) continue;
-        const float mdepth = ndc_depth(fmaxf(r.depth, 1e-6f));
-        float gw = row[kRGB] * q.gC0 + row[kRGB + 1] * q.gC1 + row[kRGB + 2] * q.gC2 +
-                   r.depth * q.gD + row[kNRM] * q.gN0 + row[kNRM + 1] * q.gN1 +
-                   row[kNRM + 2] * q.gN2 +
-                   q.gDist * (mdepth * mdepth * q.a_tot + q.s2 - 2.0f * mdepth * q.s1);
+    bool any_active = false;
 #pragma unroll
-        for (int e = 0; e < kMaxExtra; ++e)
-          if (e < n_extra) gw += row[kEXTRA + e] * gX[e];
-        L += gw * alpha * P;
-        P *= 1.0f - alpha;
+    for (int j = 0; j < S::kPPT; ++j) {
+      const PixelCot& qj = q[j];
+      if (active[j]) {
+        for (int k = 0; k < m; ++k) {
+          if ((float)(rank0 + c * kChunk + k) >= qj.n_contrib) {
+            active[j] = false;
+            break;
+          }
+          const float* row = st + k * kF;
+          const Response r = splat_response(row, px[j].x, px[j].y, px[j].q);
+          const float alpha = min_nan(r.alpha_raw, kAlphaClamp);
+          if (!is_candidate(r, alpha)) continue;
+          const float mdepth = ndc_depth(fmaxf(r.depth, 1e-6f));
+          float gw = row[kRGB] * qj.gC0 + row[kRGB + 1] * qj.gC1 + row[kRGB + 2] * qj.gC2 +
+                     r.depth * qj.gD + row[kNRM] * qj.gN0 + row[kNRM + 1] * qj.gN1 +
+                     row[kNRM + 2] * qj.gN2 +
+                     qj.gDist * (mdepth * mdepth * qj.a_tot + qj.s2 - 2.0f * mdepth * qj.s1);
+#pragma unroll
+          for (int e = 0; e < kMaxExtra; ++e)
+            if (e < n_extra) gw += row[kEXTRA + e] * gX[j][e];
+          L[j] += gw * alpha * P[j];
+          P[j] *= 1.0f - alpha;
+        }
       }
+      any_active |= active[j];
     }
-    if (!__syncthreads_or(active)) break;
+    if (!__syncthreads_or(any_active)) break;
     if (threadIdx.x == 0 && c + 2 < nc)
       ring.load(c + 2, src + (size_t)(c + 2) * kChunk * kF, min(kChunk, n - (c + 2) * kChunk));
   }
   if (threadIdx.x == 0 && c + 1 < nc) ring.settle(c + 1);  // a copy still in flight
-  float* o = pl + (size_t)blockIdx.x * 2 * kPix + threadIdx.x;
-  o[0] = P;
-  o[kPix] = L;
+#pragma unroll
+  for (int j = 0; j < S::kPPT; ++j) {
+    float* o = pl + (size_t)blockIdx.x * 2 * kPix + threadIdx.x + j * S::kThreads;
+    o[0] = P[j];
+    o[kPix] = L[j];
+  }
 }
 
-// B2: the gradient rows of one item
-__global__ void __launch_bounds__(kPix, 3)
+// B2: the gradient rows of one item. At one pixel per thread it keeps 3
+// blocks per SM (78 registers at TILE 16); at 4 it holds four pixels' state
+// and takes one.
+template <int TILE>
+__global__ void __launch_bounds__(TileShape<TILE>::kThreads,
+                                  TileShape<TILE>::kPPT == 1 ? 3 : 1)
 tile_bwd_grad(const float* __restrict__ slab, const int* __restrict__ tile_start,
               const int* __restrict__ count_eff, const int* __restrict__ item_off,
               int n_tiles, const float* __restrict__ cot,
               const float* __restrict__ resid, const float* __restrict__ pl,
               float* __restrict__ grad, int tiles_x, int tiles_per_frame,
               int n_extra) {
+  using S = TileShape<TILE>;
+  using G = GradSmem<TILE>;
+  constexpr int kPix = S::kPix;
+  constexpr int kPPT = S::kPPT;
   extern __shared__ __align__(128) float smem[];
   float* rows = smem;                                         // [2][kGroup][kF]
   float (*part)[kGroup][kF] =
       reinterpret_cast<float (*)[kGroup][kF]>(smem + 2 * kGroup * kF);  // [kWarps]
-  float* s_gx = smem + kGradSmemFloats;                       // [n_extra][kPix]
+  float* s_gx = smem + G::kFloats;                            // [n_extra][kPix]
   __shared__ __align__(8) uint64_t bar[2];
 
   Item it;
   if (!find_item(item_off, n_tiles, blockIdx.x, &it)) return;
-  const int lin = threadIdx.x;
-  const int lane = lin & 31;
-  const int warp = lin >> 5;
-  const Pixel px = pixel_of(it.tile, tiles_x, tiles_per_frame);
-  const PixelCot q = load_cot(cot, resid, it.tile, n_extra);
-  const float* cpx = cot + ((size_t)it.tile * kPix + lin) * (10 + n_extra) + 10;
-  for (int e = 0; e < n_extra; ++e) s_gx[e * kPix + lin] = cpx[e];
-
-  // T and S at the item's end, from the later items' P and L
-  float T = q.t_fin;  // T after the current entry
-  float S = 0.0f;     // sum over later entries of gw * w
-  for (int j = it.n_items - 1; j > it.seg; --j) {
-    const float* o = pl + (size_t)(it.first_item + j) * 2 * kPix + lin;
-    const float t_start = T / o[0];
-    S += t_start * o[kPix];
-    T = t_start;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  Pixel px[kPPT];
+  PixelCot q[kPPT];
+  float T[kPPT];  // T after the current entry
+  float S_[kPPT];  // sum over later entries of gw * w
+#pragma unroll
+  for (int j = 0; j < kPPT; ++j) {
+    const int lin = threadIdx.x + j * S::kThreads;
+    px[j] = pixel_of<TILE>(it.tile, lin, tiles_x, tiles_per_frame);
+    q[j] = load_cot<TILE>(cot, resid, it.tile, lin, n_extra);
+    const float* cpx = cot + ((size_t)it.tile * kPix + lin) * (10 + n_extra) + 10;
+    for (int e = 0; e < n_extra; ++e) s_gx[e * kPix + lin] = cpx[e];
+    // T and S at the item's end, from the later items' P and L
+    T[j] = q[j].t_fin;
+    S_[j] = 0.0f;
+    for (int i = it.n_items - 1; i > it.seg; --i) {
+      const float* o = pl + (size_t)(it.first_item + i) * 2 * kPix + lin;
+      const float t_start = T[j] / o[0];
+      S_[j] += t_start * o[kPix];
+      T[j] = t_start;
+    }
   }
 
   const int rank0 = it.seg * kSeg;
@@ -215,72 +266,90 @@ tile_bwd_grad(const float* __restrict__ slab, const int* __restrict__ tile_start
 
     for (int k = m - 1; k >= 0; --k) {
       const float* row = st + k * kF;
-      const Response r = splat_response(row, px.x, px.y, px.q);
-      const bool clamped = r.alpha_raw > kAlphaClamp;
-      const float alpha = min_nan(r.alpha_raw, kAlphaClamp);
-      const bool ok = is_candidate(r, alpha) && (float)(rank0 + gbase + k) < q.n_contrib;
-      float g_px = 0.f, g_py = 0.f, g_pz = 0.f, g_q = 0.f, g_d2 = 0.f, g_rho2 = 0.f;
-      float g_opac = 0.f, w = 0.f;
-      if (ok) {
-        const float om = 1.0f - alpha;
-        const float t_before = T / om;
-        w = alpha * t_before;
-        const float depth_pos = fmaxf(r.depth, 1e-6f);
-        const float mdepth = ndc_depth(depth_pos);
+      float g_px[kPPT], g_py[kPPT], g_pz[kPPT], g_q[kPPT], g_d2[kPPT], g_rho2[kPPT];
+      float g_opac[kPPT], w[kPPT];
+      bool any_ok = false;
+#pragma unroll
+      for (int j = 0; j < kPPT; ++j) {
+        const PixelCot& qj = q[j];
+        const int lin = threadIdx.x + j * S::kThreads;
+        const Response r = splat_response(row, px[j].x, px[j].y, px[j].q);
+        const bool clamped = r.alpha_raw > kAlphaClamp;
+        const float alpha = min_nan(r.alpha_raw, kAlphaClamp);
+        const bool ok = is_candidate(r, alpha) && (float)(rank0 + gbase + k) < qj.n_contrib;
+        g_px[j] = g_py[j] = g_pz[j] = g_q[j] = g_d2[j] = g_rho2[j] = 0.f;
+        g_opac[j] = w[j] = 0.f;
+        if (ok) {
+          const float om = 1.0f - alpha;
+          const float t_before = T[j] / om;
+          w[j] = alpha * t_before;
+          const float depth_pos = fmaxf(r.depth, 1e-6f);
+          const float mdepth = ndc_depth(depth_pos);
 
-        float gw = row[kRGB] * q.gC0 + row[kRGB + 1] * q.gC1 + row[kRGB + 2] * q.gC2 +
-                   r.depth * q.gD + row[kNRM] * q.gN0 + row[kNRM + 1] * q.gN1 +
-                   row[kNRM + 2] * q.gN2 +
-                   q.gDist * (mdepth * mdepth * q.a_tot + q.s2 - 2.0f * mdepth * q.s1);
-        for (int e = 0; e < n_extra; ++e) gw += row[kEXTRA + e] * s_gx[e * kPix + lin];
+          float gw = row[kRGB] * qj.gC0 + row[kRGB + 1] * qj.gC1 + row[kRGB + 2] * qj.gC2 +
+                     r.depth * qj.gD + row[kNRM] * qj.gN0 + row[kNRM + 1] * qj.gN1 +
+                     row[kNRM + 2] * qj.gN2 +
+                     qj.gDist * (mdepth * mdepth * qj.a_tot + qj.s2 - 2.0f * mdepth * qj.s1);
+          for (int e = 0; e < n_extra; ++e) gw += row[kEXTRA + e] * s_gx[e * kPix + lin];
 
-        float g_alpha = gw * t_before - (S + q.g_tfin * q.t_fin) / fmaxf(om, 1e-3f);
-        if (clamped) g_alpha = 0.0f;
-        S += gw * w;
-        T = t_before;
+          float g_alpha = gw * t_before - (S_[j] + qj.g_tfin * qj.t_fin) / fmaxf(om, 1e-3f);
+          if (clamped) g_alpha = 0.0f;
+          S_[j] += gw * w[j];
+          T[j] = t_before;
 
-        g_opac = g_alpha * r.g;
-        const float g_rho = g_alpha * row[kOPAC] * r.g * (-0.5f);
-        // expected-depth term + distortion's m-chain, dm/dd gated at 1e-6
-        const float g_m = q.gDist * 2.0f * w * (mdepth * q.a_tot - q.s1);
-        const float dmdd = r.depth > 1e-6f
-            ? (kFar * kNear) / ((kFar - kNear) * depth_pos * depth_pos) : 0.0f;
-        const float g_depth = w * q.gD + g_m * dmdd;
-        const float g_rho3 = r.use3d ? g_rho : 0.0f;
-        g_rho2 = r.use3d ? 0.0f : g_rho;
-        const float g_d3 = r.use3d ? g_depth : 0.0f;
-        g_d2 = r.use3d ? 0.0f : g_depth;
-        const float ipz2 = r.ipz * r.ipz;
-        g_px = 2.0f * r.px * ipz2 * g_rho3;
-        g_py = 2.0f * r.py * ipz2 * g_rho3;
-        g_pz = -(2.0f * r.rho3d * g_rho3 + r.depth * g_d3) * r.ipz;
-        g_q = r.ipz * g_d3;
+          g_opac[j] = g_alpha * r.g;
+          const float g_rho = g_alpha * row[kOPAC] * r.g * (-0.5f);
+          // expected-depth term + distortion's m-chain, dm/dd gated at 1e-6
+          const float g_m = qj.gDist * 2.0f * w[j] * (mdepth * qj.a_tot - qj.s1);
+          const float dmdd = r.depth > 1e-6f
+              ? (kFar * kNear) / ((kFar - kNear) * depth_pos * depth_pos) : 0.0f;
+          const float g_depth = w[j] * qj.gD + g_m * dmdd;
+          const float g_rho3 = r.use3d ? g_rho : 0.0f;
+          g_rho2[j] = r.use3d ? 0.0f : g_rho;
+          const float g_d3 = r.use3d ? g_depth : 0.0f;
+          g_d2[j] = r.use3d ? 0.0f : g_depth;
+          const float ipz2 = r.ipz * r.ipz;
+          g_px[j] = 2.0f * r.px * ipz2 * g_rho3;
+          g_py[j] = 2.0f * r.py * ipz2 * g_rho3;
+          g_pz[j] = -(2.0f * r.rho3d * g_rho3 + r.depth * g_d3) * r.ipz;
+          g_q[j] = r.ipz * g_d3;
+        }
+        any_ok |= ok;
       }
 
       // skipped when no pixel of the warp touches this entry
       float out = 0.0f;
-      if (__any_sync(0xffffffffu, ok)) {
+      if (__any_sync(0xffffffffu, any_ok)) {
         float v[16];
-        v[kPA] = g_px;             v[kPA + 1] = g_py;        v[kPA + 2] = g_pz;
-        v[kPB] = px.x * g_px;      v[kPB + 1] = px.x * g_py; v[kPB + 2] = px.x * g_pz;
-        v[kPC] = px.y * g_px;      v[kPC + 1] = px.y * g_py; v[kPC + 2] = px.y * g_pz;
-        v[kQD] = g_q;
-        v[kTW2] = g_d2;
-        v[kE0] = g_rho2;
-        v[kE1] = px.x * g_rho2;
-        v[kE2] = px.y * g_rho2;
-        v[kOPAC] = g_opac;
-        v[kRGB] = w * q.gC0;
+        v[kPA] = pix_sum<kPPT>([&](int j) { return g_px[j]; });
+        v[kPA + 1] = pix_sum<kPPT>([&](int j) { return g_py[j]; });
+        v[kPA + 2] = pix_sum<kPPT>([&](int j) { return g_pz[j]; });
+        v[kPB] = pix_sum<kPPT>([&](int j) { return px[j].x * g_px[j]; });
+        v[kPB + 1] = pix_sum<kPPT>([&](int j) { return px[j].x * g_py[j]; });
+        v[kPB + 2] = pix_sum<kPPT>([&](int j) { return px[j].x * g_pz[j]; });
+        v[kPC] = pix_sum<kPPT>([&](int j) { return px[j].y * g_px[j]; });
+        v[kPC + 1] = pix_sum<kPPT>([&](int j) { return px[j].y * g_py[j]; });
+        v[kPC + 2] = pix_sum<kPPT>([&](int j) { return px[j].y * g_pz[j]; });
+        v[kQD] = pix_sum<kPPT>([&](int j) { return g_q[j]; });
+        v[kTW2] = pix_sum<kPPT>([&](int j) { return g_d2[j]; });
+        v[kE0] = pix_sum<kPPT>([&](int j) { return g_rho2[j]; });
+        v[kE1] = pix_sum<kPPT>([&](int j) { return px[j].x * g_rho2[j]; });
+        v[kE2] = pix_sum<kPPT>([&](int j) { return px[j].y * g_rho2[j]; });
+        v[kOPAC] = pix_sum<kPPT>([&](int j) { return g_opac[j]; });
+        v[kRGB] = pix_sum<kPPT>([&](int j) { return w[j] * q[j].gC0; });
         const float lo = reduce16(v, lane);  // columns 0-15
-        v[kRGB + 1 - 16] = w * q.gC1;
-        v[kRGB + 2 - 16] = w * q.gC2;
-        v[kNRM - 16] = w * q.gN0;
-        v[kNRM + 1 - 16] = w * q.gN1;
-        v[kNRM + 2 - 16] = w * q.gN2;
+        v[kRGB + 1 - 16] = pix_sum<kPPT>([&](int j) { return w[j] * q[j].gC1; });
+        v[kRGB + 2 - 16] = pix_sum<kPPT>([&](int j) { return w[j] * q[j].gC2; });
+        v[kNRM - 16] = pix_sum<kPPT>([&](int j) { return w[j] * q[j].gN0; });
+        v[kNRM + 1 - 16] = pix_sum<kPPT>([&](int j) { return w[j] * q[j].gN1; });
+        v[kNRM + 2 - 16] = pix_sum<kPPT>([&](int j) { return w[j] * q[j].gN2; });
 #pragma unroll
         for (int e = 0; e < kMaxExtra; ++e) {
           v[kEXTRA - 16 + e] = 0.0f;
-          if (e < n_extra) v[kEXTRA - 16 + e] = w * s_gx[e * kPix + lin];
+          if (e < n_extra)
+            v[kEXTRA - 16 + e] = pix_sum<kPPT>([&](int j) {
+              return w[j] * s_gx[e * kPix + threadIdx.x + j * S::kThreads];
+            });
         }
         const float hi = reduce16(v, lane);  // columns 16-31
         out = lane < 16 ? lo : hi;  // lane l holds column l
@@ -291,40 +360,57 @@ tile_bwd_grad(const float* __restrict__ slab, const int* __restrict__ tile_start
     if (threadIdx.x == 0 && c + 2 < ng)
       ring.load(c + 2, src + (size_t)(ng - 3 - c) * kGroup * kF, kGroup);
     // add the warp partials and write the group's grad rows (coalesced)
-    for (int i = lin; i < m * kF; i += kPix) {
+    for (int i = threadIdx.x; i < m * kF; i += S::kThreads) {
       const int k = i / kF, col = i % kF;
       float s = 0.0f;
 #pragma unroll
-      for (int wp = 0; wp < kWarps; ++wp) s += part[wp][k][col];
+      for (int wp = 0; wp < G::kWarps; ++wp) s += part[wp][k][col];
       grad[(size_t)(start + gbase + k) * kF + col] = s;
     }
     __syncthreads();  // the partials are consumed
   }
 }
 
+template <int TILE>
+int launch_backward(const float* slab, const int* tile_start, const int* count_eff,
+                    const int* item_off, const float* cot, const float* resid, float* pl,
+                    float* grad, int n_tiles, int n_blocks, int tiles_x,
+                    int tiles_per_frame, int n_extra, cudaStream_t s) {
+  using S = TileShape<TILE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      tile_bwd_grad<TILE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      GradSmem<TILE>::kMaxBytes);
+  if (err != cudaSuccess) return (int)err;
+  tile_bwd_transmit<TILE><<<n_blocks, S::kThreads, 0, s>>>(
+      slab, tile_start, count_eff, item_off, n_tiles, cot, resid, pl, tiles_x,
+      tiles_per_frame, n_extra);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const size_t smem = (size_t)(GradSmem<TILE>::kFloats + n_extra * S::kPix) * sizeof(float);
+  tile_bwd_grad<TILE><<<n_blocks, S::kThreads, smem, s>>>(
+      slab, tile_start, count_eff, item_off, n_tiles, cot, resid, pl, grad, tiles_x,
+      tiles_per_frame, n_extra);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace vidu4d
 
-// Launches B1 and B2 on `stream`. count_eff (T,) bounds each tile's walk;
-// pl (n_blocks, 2, 256) is scratch; n_blocks bounds the item count
-// (tile_forward.py:work_list). Returns the first launch error.
+// Launches B1 and B2 at tile side `tile` (one of kTileSides, else
+// cudaErrorInvalidValue before any launch) on `stream`. count_eff (T,)
+// bounds each tile's walk; pl (n_blocks, 2, tile^2) is scratch; n_blocks
+// bounds the item count (tile_forward.py:work_list). Returns the first
+// launch error.
 extern "C" int vidu4d_tile_backward(const float* slab, const int* tile_start,
                                     const int* count_eff, const int* item_off,
                                     const float* cot, const float* resid, float* pl,
                                     float* grad, int n_tiles, int n_blocks, int tiles_x,
-                                    int tiles_per_frame, int n_extra, void* stream) {
+                                    int tiles_per_frame, int tile, int n_extra,
+                                    void* stream) {
   using namespace vidu4d;
+  if (tile != 8 && tile != 16 && tile != 32) return (int)cudaErrorInvalidValue;
   if (n_tiles <= 0 || n_blocks <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaFuncSetAttribute(
-      tile_bwd_grad, cudaFuncAttributeMaxDynamicSharedMemorySize, kGradSmemMax);
-  if (err != cudaSuccess) return (int)err;
-  tile_bwd_transmit<<<n_blocks, kPix, 0, s>>>(slab, tile_start, count_eff, item_off,
-                                              n_tiles, cot, resid, pl, tiles_x,
-                                              tiles_per_frame, n_extra);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const size_t smem = (size_t)(kGradSmemFloats + n_extra * kPix) * sizeof(float);
-  tile_bwd_grad<<<n_blocks, kPix, smem, s>>>(slab, tile_start, count_eff, item_off,
-                                             n_tiles, cot, resid, pl, grad, tiles_x,
-                                             tiles_per_frame, n_extra);
-  return (int)cudaGetLastError();
+  auto* launch = tile == 8 ? launch_backward<8> : tile == 16 ? launch_backward<16>
+                                                             : launch_backward<32>;
+  return launch(slab, tile_start, count_eff, item_off, cot, resid, pl, grad, n_tiles,
+                n_blocks, tiles_x, tiles_per_frame, n_extra, s);
 }

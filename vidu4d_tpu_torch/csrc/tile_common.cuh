@@ -10,10 +10,17 @@
 // depth numerator q = det(Tu, Tv, Tw), Tw.z, the rho2d polynomial
 // coefficients, opacity, RGB, normal, then the extra channels.
 //
+// Tile side. Every kernel is a template over the side TILE, instantiated
+// for kTileSides (8, 16, 32); the C entry points pick one by value. A block
+// runs TileShape<TILE>::kThreads = min(TILE^2, 256) threads, each owning
+// kPPT = TILE^2 / kThreads pixels (1 at 8 and 16, 4 at 32: 1024 threads of
+// the backward's gradient walk would need more registers than an SM has).
+// Pixel j of thread t is tile pixel t + j * kThreads; each pixel keeps its
+// own early stop, and a block ends when all of its pixels have stopped.
+//
 // Work list. A tile's entry list is cut into items of at most kSeg
-// consecutive entries, and every pass runs one 256-thread block per item
-// (one thread per pixel), so no block walks more than kSeg entries however
-// deep the tile is. Tile t owns items [item_off[t], item_off[t+1]); item s of
+// consecutive entries, and every pass runs one block per item, so no block
+// walks more than kSeg entries however deep the tile is. Tile t owns items [item_off[t], item_off[t+1]); item s of
 // a tile covers its entries [s * kSeg, min((s + 1) * kSeg, count)). item_off
 // is an exclusive cumsum of ceil(count / kSeg), built on the device by the
 // wrapper (tile_forward.py:work_list); the grid is a host-known bound
@@ -25,8 +32,19 @@
 
 namespace vidu4d {
 
-constexpr int kTile = 16;               // tile side in pixels
-constexpr int kPix = kTile * kTile;     // threads per block: one per pixel
+// the tile sides the kernels are instantiated for (the wrappers' TILE_SIDES)
+constexpr int kNumTileSides = 3;
+constexpr int kTileSides[kNumTileSides] = {8, 16, 32};
+constexpr int kMaxThreads = 256;        // threads per block at most
+
+template <int TILE>
+struct TileShape {
+  static constexpr int kPix = TILE * TILE;  // pixels per tile
+  static constexpr int kThreads = kPix < kMaxThreads ? kPix : kMaxThreads;
+  static constexpr int kPPT = kPix / kThreads;  // pixels per thread
+  static_assert(kPix % kThreads == 0 && kThreads % 32 == 0, "whole warps, whole pixels");
+};
+
 constexpr int kF = 32;                  // slab row width (floats)
 constexpr int kPA = 0, kPB = 3, kPC = 6, kQD = 9, kTW2 = 10;
 constexpr int kE0 = 11, kE1 = 12, kE2 = 13, kOPAC = 14, kRGB = 15, kNRM = 18;
@@ -87,17 +105,19 @@ __device__ __forceinline__ float ndc_depth(float depth_pos) {
   return (kFar * depth_pos - kFar * kNear) / ((kFar - kNear) * depth_pos);
 }
 
-// Absolute centre of this thread's pixel in its (frame, tile) block.
+// Absolute centre of pixel `lin` (row-major in the tile) of a (frame, tile)
+// block.
 struct Pixel {
   float x, y, q;  // q = kFilterInvSquare * (x^2 + y^2)
 };
 
-__device__ __forceinline__ Pixel pixel_of(int tile, int tiles_x, int tiles_per_frame) {
+template <int TILE>
+__device__ __forceinline__ Pixel pixel_of(int tile, int lin, int tiles_x,
+                                          int tiles_per_frame) {
   const int tl = tile % tiles_per_frame;
-  const int lin = threadIdx.x;
   Pixel p;
-  p.x = (float)((tl % tiles_x) * kTile + lin % kTile) + 0.5f;
-  p.y = (float)((tl / tiles_x) * kTile + lin / kTile) + 0.5f;
+  p.x = (float)((tl % tiles_x) * TILE + lin % TILE) + 0.5f;
+  p.y = (float)((tl / tiles_x) * TILE + lin / TILE) + 0.5f;
   p.q = kFilterInvSquare * (p.x * p.x + p.y * p.y);
   return p;
 }
@@ -135,7 +155,7 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // Two-stage ring of R-row slab stages. Thread 0 issues each stage's copy
 // (cp.async.bulk, completion counted in bytes on the stage's mbarrier) and
 // waits on the barrier's phase; a __syncthreads then hands the rows to the
-// block. (With all 256 threads polling the mbarrier, the walk that
+// block. (With all of a 256-thread block polling the mbarrier, the walk that
 // followed ran several times slower on the H100.) Step c of a walk uses
 // stage c & 1, filled for the (c >> 1)-th time. The caller re-fills a stage
 // only after a __syncthreads that follows the last read of it.

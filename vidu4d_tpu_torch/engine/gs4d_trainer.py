@@ -79,7 +79,7 @@ from vidu4d_tpu_torch.ops.quaternion import dual_quaternion_to_quaternion_transl
 from vidu4d_tpu_torch.ops.rasterize import RasterizeConfig
 from vidu4d_tpu_torch.ops.rasterize.common import compute_tile_rects, project_splats
 from vidu4d_tpu_torch.ops.rasterize.tile_backward import composite_batch
-from vidu4d_tpu_torch.ops.rasterize.tile_forward import TILE
+from vidu4d_tpu_torch.ops.rasterize.tile_forward import check_tile
 from vidu4d_tpu_torch.parallel import sharding
 from vidu4d_tpu_torch.utils.camera_trajectories import construct_batch
 from vidu4d_tpu_torch.utils.logging import ScalarLogger, dump_opts_json
@@ -107,7 +107,6 @@ def check_supported(opts: Dict) -> None:
     unsupported = [
         (o.get("raster_impl") not in (None, "", "pallas_grad"),
          f"raster_impl={o.get('raster_impl')!r} (the port has the kernel path only)"),
-        (o.get("raster_tile", 16) != 16, "raster_tile != 16"),
         (o.get("pixels_per_image", -1) != -1, "pixels_per_image != -1"),
         (bool(o.get("gs_init_ply")), "gs_init_ply (the JAX trainer ignores it)"),
     ]
@@ -231,6 +230,10 @@ class Stage3Trainer:
         self.opts = dict(opts)
         opts = self.opts
         opts.setdefault("pixels_per_image", -1)  # full images (`gs4d_trainer.py:150`)
+        # the tile side, in opts.json too: render / export / reanimate
+        # --logdir render at the trained side
+        opts.setdefault("raster_tile", 16)
+        check_tile(opts["raster_tile"])
         self.device = torch.device(device)
         self.group = sharding.trainer_group(opts.get("ngpu", 1) or 1, self.device, group)
         self.is_root = self.group is None or self.group.rank == 0
@@ -312,6 +315,7 @@ class Stage3Trainer:
         # wall seconds of each round of `train` (its "Round NNN: time=")
         self.round_seconds = []
         self.raster_cfg = RasterizeConfig(
+            tile=opts["raster_tile"],
             span_cap=opts.get("raster_span_cap", 4),
             entry_cap=int(opts.get("raster_entry_cap", 2 ** 19) or 0),
         )
@@ -579,7 +583,7 @@ class Stage3Trainer:
             eye = torch.eye(4, device=self.device)
             proj = project_splats(xyz_cam, rot_cam, sf.get_scaling(sp), eye, intrins,
                                   mask=surf.alive)
-            rects = compute_tile_rects(proj, res, res, TILE, cfg.span_cap)
+            rects = compute_tile_rects(proj, res, res, cfg.tile, cfg.span_cap)
             vs = dummy.grad * proj.depth[..., None] * float(res)
             norms = safe_norm(vs, dim=-1)
             vis = rects.valid

@@ -37,7 +37,6 @@ from vidu4d_tpu_torch.ops.rasterize.api import (
     rasterize_with_projection,
 )
 from vidu4d_tpu_torch.ops.rasterize.common import compute_tile_rects
-from vidu4d_tpu_torch.ops.rasterize.tile_forward import TILE
 
 
 class Camera(NamedTuple):
@@ -97,7 +96,8 @@ def train_step(state: sf.SurfelState, adam: GsAdamState, viewmat: torch.Tensor,
         # densification statistics from the forward's projection of the
         # pre-update params: the reference's NDC-scaled mean2D gradient
         # (backward.cu:647-649), dL/dT[u,z] z W, dL/dT[v,z] z H
-        rects = compute_tile_rects(proj, height, width, TILE, config.raster.span_cap)
+        rects = compute_tile_rects(proj, height, width, config.raster.tile,
+                                   config.raster.span_cap)
         vs_grad = dummy.grad * proj.depth[:, None].detach() * torch.tensor(
             [[float(width), float(height)]], device=dummy.device)
         new_state = sf.add_densification_stats(state, vs_grad, rects.valid,

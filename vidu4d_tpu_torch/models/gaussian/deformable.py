@@ -230,7 +230,7 @@ def prepare_surfels_batch(
                             mask=alive, densify_dummy=densify_dummy)
     return prepare_batch(
         proj_b, colors, sf.get_opacity(params)[:, 0], bg_color, height, width,
-        span_cap=config.span_cap, entry_cap=config.entry_cap,
+        span_cap=config.span_cap, entry_cap=config.entry_cap, tile=config.tile,
     )
 
 

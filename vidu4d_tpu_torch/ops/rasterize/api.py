@@ -20,8 +20,11 @@ from vidu4d_tpu_torch.ops.rasterize.tile_backward import composite_batch, prepar
 
 
 class RasterizeConfig(NamedTuple):
-    """The kernels' tile side is fixed at 16 (tile_forward.TILE)."""
+    """The kernel path's part of JAX's `RasterizeConfig` (`api.py:33`)."""
 
+    # tile side in pixels (JAX's `tile`); the kernels take 8, 16 or 32
+    # (tile_forward.TILE_SIDES)
+    tile: int = 16
     span_cap: int = 4  # max tiles per axis a splat may cover
     # static cap on the sorted entries packed per frame (0 = none); exact
     # while a frame's entry count stays under it (the JAX kernel path's
@@ -68,7 +71,8 @@ def rasterize_with_projection(
         means3d[None], quats[None], scales, viewmat, intrins[None], mask=mask,
         densify_dummy=None if densify_dummy is None else densify_dummy[None])
     prepared = prepare_batch(proj_b, colors[None], opacities, bg_color, height, width,
-                             span_cap=config.span_cap, entry_cap=config.entry_cap)
+                             span_cap=config.span_cap, entry_cap=config.entry_cap,
+                             tile=config.tile)
     out = composite_batch(prepared, height, width)
     proj = common.SplatProjection(*[x[0] for x in proj_b])
     return CompositeOutput(*[x[0] for x in out]), proj

@@ -21,14 +21,15 @@ from vidu4d_tpu_torch.ops.rasterize import common
 from vidu4d_tpu_torch.ops.rasterize.compositing import CompositeOutput
 from vidu4d_tpu_torch.ops.rasterize.tile_forward import (
     CHUNK, E0, E1, E2, EXTRA, NRM, OPAC, PA, PB, PC, QD, RGB, SLAB_WIDTH,
-    TILE, TW2, _pixel_centers, forward_tiles, ndc_depth, pack_props,
+    TILE, TW2, _pixel_centers, check_tile, forward_tiles, ndc_depth, pack_props,
     splat_response, tile_library, work_list,
 )
 
 
 @torch.no_grad()
 def backward_tiles_plain(slab, tile_start, tile_count, cot, resid,
-                         tiles_x: int, tiles_per_frame: int, n_extra: int):
+                         tiles_x: int, tiles_per_frame: int, n_extra: int,
+                         tile: int = TILE):
     """Plain PyTorch version of the backward kernel: CHUNK entries per step
     in reverse, T-before rebuilt by division with suffix products, suffix
     sums for the alpha gradient (the Pallas kernel's formulation).
@@ -39,7 +40,7 @@ def backward_tiles_plain(slab, tile_start, tile_count, cot, resid,
     if nt == 0:
         return grad
     dev = slab.device
-    pxf, pyf = _pixel_centers(nt, tiles_x, tiles_per_frame, dev)
+    pxf, pyf = _pixel_centers(nt, tiles_x, tiles_per_frame, dev, tile)
     px3, py3 = pxf[:, None, :], pyf[:, None, :]
     t_fin, n_contrib, s1_tot, s2_tot = (x[:, None, :] for x in resid.unbind(-1))
     a_tot = 1.0 - t_fin
@@ -146,22 +147,23 @@ def effective_counts(tile_count, resid):
 
 
 def backward_tiles(slab, tile_start, tile_count, cot, resid, tiles_x: int,
-                   tiles_per_frame: int, n_extra: int):
+                   tiles_per_frame: int, n_extra: int, tile: int = TILE):
     """Per-entry (E, 32) grad slab of the forward compositor.
 
-    cot (T, 256, 10 + n_extra): gC(3) gD gA gN(3) gBGdot gDist gX;
-    resid (T, 256, 4): T_fin, n_contrib, S1, S2 (aux[..., 8:12]).
+    cot (T, tile^2, 10 + n_extra): gC(3) gD gA gN(3) gBGdot gDist gX;
+    resid (T, tile^2, 4): T_fin, n_contrib, S1, S2 (aux[..., 8:12]).
     CPU tensors run the plain version; CUDA tensors launch the kernels (two
     passes over the work list of count_eff, each tile's entries up to its
     largest n_contrib), or this raises."""
+    check_tile(tile)
     if slab.device.type == "cpu":
         return backward_tiles_plain(slab, tile_start, tile_count, cot, resid,
-                                    tiles_x, tiles_per_frame, n_extra)
+                                    tiles_x, tiles_per_frame, n_extra, tile)
     if slab.device.type != "cuda":
         raise ValueError(f"no tile_backward kernel for device {slab.device}")
     dev = slab.device
     nt = tile_start.shape[0]
-    px_n = TILE * TILE
+    px_n = tile * tile
     kernels.check_tensor("slab", slab, dev)
     if slab.dim() != 2 or slab.shape[1] != SLAB_WIDTH:
         raise ValueError(f"slab must be (E, {SLAB_WIDTH}), got {tuple(slab.shape)}")
@@ -177,7 +179,7 @@ def backward_tiles(slab, tile_start, tile_count, cot, resid, tiles_x: int,
     rc = lib.vidu4d_tile_backward(
         slab.data_ptr(), tile_start.data_ptr(), count_eff.data_ptr(),
         item_off.data_ptr(), cot.data_ptr(), resid.data_ptr(), pl.data_ptr(),
-        grad.data_ptr(), nt, n_blocks, tiles_x, tiles_per_frame, n_extra,
+        grad.data_ptr(), nt, n_blocks, tiles_x, tiles_per_frame, tile, n_extra,
         kernels.stream_ptr(dev),
     )
     kernels.check_launch(rc, "tile_backward")
@@ -188,50 +190,53 @@ def backward_tiles(slab, tile_start, tile_count, cot, resid, tiles_x: int,
 class TileComposite(torch.autograd.Function):
     """Forward kernel + analytic backward kernel (`pallas_backward.py:449`).
 
-    Outputs color (T, 256, 3+X) and aux[..., :8]; aux[..., 8:12] (T_fin,
+    Outputs color (T, tile^2, 3+X) and aux[..., :8]; aux[..., 8:12] (T_fin,
     n_contrib, S1, S2) are kept as the backward's residuals. The median
     depth / weight channels (5, 7) get no gradient."""
 
     @staticmethod
     def forward(ctx, slab, tile_start, tile_count, bg, tiles_x, tiles_per_frame,
-                n_extra):
+                n_extra, tile):
         color, aux = forward_tiles(slab, tile_start, tile_count, bg, tiles_x,
-                                   tiles_per_frame, n_extra)
+                                   tiles_per_frame, n_extra, tile)
         ctx.save_for_backward(slab, tile_start, tile_count, bg,
                               aux[..., 8:12].contiguous())
-        ctx.geom = (tiles_x, tiles_per_frame, n_extra)
+        ctx.geom = (tiles_x, tiles_per_frame, n_extra, tile)
         return color, aux[..., :8]
 
     @staticmethod
     def backward(ctx, g_color, g_aux):
         slab, tile_start, tile_count, bg, resid = ctx.saved_tensors
-        tiles_x, tiles_per_frame, n_extra = ctx.geom
+        tiles_x, tiles_per_frame, n_extra, tile = ctx.geom
         g_bgdot = torch.sum(g_color * bg, dim=-1, keepdim=True)
         cot = torch.cat(
             [g_color[..., :3], g_aux[..., 0:1], g_aux[..., 1:2], g_aux[..., 2:5],
              g_bgdot, g_aux[..., 6:7], g_color[..., 3:]], dim=-1,
         ).contiguous()
         g_slab = backward_tiles(slab, tile_start, tile_count, cot, resid,
-                                tiles_x, tiles_per_frame, n_extra)
+                                tiles_x, tiles_per_frame, n_extra, tile)
         g_bg = torch.einsum("tp,tpc->c", resid[..., 0], g_color)
-        return g_slab, None, None, g_bg, None, None, None
+        return g_slab, None, None, g_bg, None, None, None, None
 
 
 def prepare_batch(proj_b: common.SplatProjection, colors_b: torch.Tensor,
                   opacities: torch.Tensor, bg_color: torch.Tensor, height: int,
-                  width: int, span_cap: int = 4, entry_cap: int = 0) -> dict:
-    """Bin and pack M frames into the kernels' inputs: one slab with the
-    frames' segments concatenated, tile tables offset into it (frame f's
-    tiles are blocks [f*T, (f+1)*T)), and bg zero-padded to 3 + n_extra.
-    ``valid`` (M,) counts the splats that project in each frame."""
-    tiles_y, tiles_x = common.tile_grid_shape(height, width, TILE)
+                  width: int, span_cap: int = 4, entry_cap: int = 0,
+                  tile: int = TILE) -> dict:
+    """Bin and pack M frames into the kernels' inputs at tile side ``tile``:
+    one slab with the frames' segments concatenated, tile tables offset
+    into it (frame f's tiles are blocks [f*T, (f+1)*T)), and bg zero-padded
+    to 3 + n_extra. ``valid`` (M,) counts the splats that project in each
+    frame."""
+    check_tile(tile)
+    tiles_y, tiles_x = common.tile_grid_shape(height, width, tile)
     n_extra = colors_b.shape[-1] - 3
     slabs, starts, counts = [], [], []
     offset = 0
     for f in range(proj_b.depth.shape[0]):
         proj_f = common.SplatProjection(*[x[f] for x in proj_b])
         binning = common.bin_splats_aligned(
-            proj_f, height, width, tile=TILE, span_cap=span_cap, chunk=CHUNK,
+            proj_f, height, width, tile=tile, span_cap=span_cap, chunk=CHUNK,
             entry_cap=entry_cap)
         slab_f = pack_props(proj_f, colors_b[f], opacities,
                             binning.sorted_splat_ids)
@@ -247,7 +252,7 @@ def prepare_batch(proj_b: common.SplatProjection, colors_b: torch.Tensor,
         tile_start=torch.cat(starts).to(torch.int32).contiguous(),
         tile_count=torch.cat(counts).to(torch.int32).contiguous(),
         bg=bg.contiguous(), tiles_x=tiles_x, tiles_y=tiles_y,
-        tiles_per_frame=tiles_x * tiles_y, n_extra=n_extra,
+        tiles_per_frame=tiles_x * tiles_y, n_extra=n_extra, tile=tile,
         valid=proj_b.valid.sum(dim=-1),
     )
 
@@ -256,16 +261,16 @@ def composite_batch(b: dict, height: int, width: int) -> CompositeOutput:
     """Differentiable tile compositing of a `prepare_batch` result: one
     forward and one backward launch for all its frames. Returns a
     CompositeOutput with (M, H, W, ...) fields."""
-    tiles_x, tiles_y = b["tiles_x"], b["tiles_y"]
+    tiles_x, tiles_y, tile = b["tiles_x"], b["tiles_y"], b["tile"]
     m = b["tile_start"].shape[0] // b["tiles_per_frame"]
     color, aux = TileComposite.apply(b["slab"], b["tile_start"], b["tile_count"],
                                      b["bg"], tiles_x, b["tiles_per_frame"],
-                                     b["n_extra"])
+                                     b["n_extra"], tile)
 
     def assemble(x):
         feat = x.shape[2:]
-        img = x.reshape((m, tiles_y, tiles_x, TILE, TILE) + feat)
-        img = img.transpose(2, 3).reshape((m, tiles_y * TILE, tiles_x * TILE) + feat)
+        img = x.reshape((m, tiles_y, tiles_x, tile, tile) + feat)
+        img = img.transpose(2, 3).reshape((m, tiles_y * tile, tiles_x * tile) + feat)
         return img[:, :height, :width]
 
     color = assemble(color)
@@ -285,7 +290,7 @@ def composite_batch(b: dict, height: int, width: int) -> CompositeOutput:
 def rasterize_batch(proj_b: common.SplatProjection, colors_b: torch.Tensor,
                     opacities: torch.Tensor, bg_color: torch.Tensor,
                     height: int, width: int, span_cap: int = 4,
-                    entry_cap: int = 0) -> CompositeOutput:
+                    entry_cap: int = 0, tile: int = TILE) -> CompositeOutput:
     """Differentiable rasterization of M frames with the tile kernels
     (`pallas_backward.py:579`); the frame dim folds into the launch grid.
 
@@ -293,5 +298,5 @@ def rasterize_batch(proj_b: common.SplatProjection, colors_b: torch.Tensor,
     opacities (P,); bg_color (C',) shared, zero-padded to C.
     Returns a CompositeOutput with (M, H, W, ...) fields."""
     b = prepare_batch(proj_b, colors_b, opacities, bg_color, height, width,
-                      span_cap=span_cap, entry_cap=entry_cap)
+                      span_cap=span_cap, entry_cap=entry_cap, tile=tile)
     return composite_batch(b, height, width)

@@ -10,9 +10,12 @@ of ``csrc/tile_forward.cu`` for tensors on a CUDA device, its plain PyTorch
 version `forward_tiles_plain` for tensors on the CPU. There is no fallback
 from one to the other.
 
-The kernels split every tile's entry list into work items of at most `SEG`
-entries, one block per item; `work_list` builds the item table on the
-device (no host synchronisation) and `decode_items` is its plain reading.
+The tile side is an argument of the compositor and its plain version, as
+JAX's `RasterizeConfig.tile` (`TILE_SIDES`: the kernels are instantiated
+for 8, 16 and 32; `check_tile` raises for any other side before a launch). The kernels
+split every tile's entry list into work items of at most `SEG` entries, one
+block per item; `work_list` builds the item table on the device (no host
+synchronisation) and `decode_items` is its plain reading.
 """
 
 from __future__ import annotations
@@ -36,22 +39,32 @@ NRM = 18
 EXTRA = 21
 MAX_EXTRA = SLAB_WIDTH - EXTRA
 CHUNK = 128  # tile segments start on CHUNK boundaries (bin_splats_aligned)
-TILE = 16    # the kernels run one thread per pixel of a 16x16 tile
+TILE = 16    # the default tile side (JAX's `RasterizeConfig.tile`)
+TILE_SIDES = (8, 16, 32)  # the sides the kernels are instantiated for (kTileSides)
 N_AUX = 12   # aux channels, see csrc/tile_forward.cu
 SEG = 256    # entries per work item of the tile kernels (kSeg, csrc/tile_common.cuh)
 N_PART_FIXED = 11  # per-item partial channels besides colour (csrc/tile_forward.cu)
 
 
+def check_tile(tile: int) -> None:
+    """Raise NotImplementedError unless the tile kernels take ``tile``."""
+    if tile not in TILE_SIDES:
+        raise NotImplementedError(
+            f"tile side {tile}: the tile kernels take {', '.join(map(str, TILE_SIDES))}")
+
+
 @functools.lru_cache(maxsize=None)
 def tile_library():
-    """The kernel library, once its item size and partial channels are
-    checked against SEG and N_PART_FIXED, with which the wrappers size the
-    work list and the partials buffer."""
+    """The kernel library, once its item size, partial channels and tile
+    sides are checked against SEG, N_PART_FIXED and TILE_SIDES, with which
+    the wrappers size the work list and the partials buffer and check the
+    side."""
     lib = kernels.library()
-    got = (lib.vidu4d_tile_seg(), lib.vidu4d_tile_part_fixed())
-    if got != (SEG, N_PART_FIXED):
-        raise RuntimeError(f"the kernels' (item size, partial channels) {got} are "
-                           f"not (SEG, N_PART_FIXED) = {(SEG, N_PART_FIXED)}")
+    got = (lib.vidu4d_tile_seg(), lib.vidu4d_tile_part_fixed(),
+           tuple(lib.vidu4d_tile_side(i) for i in range(lib.vidu4d_tile_side_count())))
+    if got != (SEG, N_PART_FIXED, TILE_SIDES):
+        raise RuntimeError(f"the kernels' (item size, partial channels, tile sides) {got} "
+                           f"are not {(SEG, N_PART_FIXED, TILE_SIDES)}")
     return lib
 
 
@@ -137,19 +150,20 @@ def pack_props(proj: common.SplatProjection, colors: torch.Tensor,
 
 
 def _pixel_centers(num_tiles: int, tiles_x: int, tiles_per_frame: int,
-                   device) -> tuple:
-    """(T, 256) absolute pixel-centre coordinates of every tile's pixels."""
+                   device, tile: int = TILE) -> tuple:
+    """(T, tile^2) absolute pixel-centre coordinates of every tile's
+    pixels (row-major in the tile)."""
     tl = torch.arange(num_tiles, device=device) % tiles_per_frame
-    lin = torch.arange(TILE * TILE, device=device)
-    pxf = ((tl % tiles_x) * TILE)[:, None] + (lin % TILE)[None, :]
-    pyf = ((tl // tiles_x) * TILE)[:, None] + (lin // TILE)[None, :]
+    lin = torch.arange(tile * tile, device=device)
+    pxf = ((tl % tiles_x) * tile)[:, None] + (lin % tile)[None, :]
+    pyf = ((tl // tiles_x) * tile)[:, None] + (lin // tile)[None, :]
     return pxf.float() + 0.5, pyf.float() + 0.5
 
 
 def splat_response(rows, pxf, pyf):
-    """Per (entry, pixel) response from (T, K, 32) rows and (T, 1, 256)
+    """Per (entry, pixel) response from (T, K, 32) rows and (T, 1, tile^2)
     pixel centres: the plain versions' copy of ``splat_response`` in
-    csrc/tile_common.cuh. Returns a dict of (T, K, 256) tensors."""
+    csrc/tile_common.cuh. Returns a dict of (T, K, tile^2) tensors."""
     r = lambda i: rows[..., i:i + 1]
     px_ = r(PA) + pxf * r(PB) + pyf * r(PC)
     py_ = r(PA + 1) + pxf * r(PB + 1) + pyf * r(PC + 1)
@@ -174,21 +188,23 @@ def ndc_depth(depth_pos):
 
 @torch.no_grad()
 def forward_tiles_plain(slab, tile_start, tile_count, bg, tiles_x: int,
-                        tiles_per_frame: int, n_extra: int):
+                        tiles_per_frame: int, n_extra: int, tile: int = TILE):
     """Plain PyTorch version of the forward kernel: every tile at once,
     CHUNK entries per step, front to back with prefix products (the Pallas
-    kernel's formulation). Returns color (T, 256, 3+X), aux (T, 256, 12)."""
+    kernel's formulation). Returns color (T, tile^2, 3+X), aux (T, tile^2,
+    12)."""
     kernels.COUNTS["tile_forward_plain"] += 1
     nt = tile_start.shape[0]
     dev = slab.device
     nchan = 3 + n_extra
-    pxf, pyf = _pixel_centers(nt, tiles_x, tiles_per_frame, dev)
+    px_n = tile * tile
+    pxf, pyf = _pixel_centers(nt, tiles_x, tiles_per_frame, dev, tile)
     pxf, pyf = pxf[:, None, :], pyf[:, None, :]
-    zeros = torch.zeros((nt, TILE * TILE), device=dev)
+    zeros = torch.zeros((nt, px_n), device=dev)
     t_c, t_last = zeros + 1.0, zeros + 1.0
-    col = torch.zeros((nt, TILE * TILE, nchan), device=dev)
+    col = torch.zeros((nt, px_n, nchan), device=dev)
     d_acc, s1, s2, med_d, med_w, ncon = (zeros.clone() for _ in range(6))
-    nrm = torch.zeros((nt, TILE * TILE, 3), device=dev)
+    nrm = torch.zeros((nt, px_n, 3), device=dev)
     chan = torch.tensor(list(range(RGB, RGB + 3)) + list(range(EXTRA, EXTRA + n_extra)),
                         device=dev)
     k = torch.arange(CHUNK, device=dev)
@@ -233,16 +249,18 @@ def forward_tiles_plain(slab, tile_start, tile_count, bg, tiles_x: int,
 
 
 def forward_tiles(slab, tile_start, tile_count, bg, tiles_x: int,
-                  tiles_per_frame: int, n_extra: int):
-    """Forward compositor over T = tile_start.shape[0] (frame, tile) blocks.
+                  tiles_per_frame: int, n_extra: int, tile: int = TILE):
+    """Forward compositor over T = tile_start.shape[0] (frame, tile) blocks
+    of tile x tile pixels.
 
     slab (E, 32) f32; tile_start / tile_count (T,) int32, segments inside
-    the slab; bg (3 + n_extra,) f32. Returns color (T, 256, 3 + n_extra) and
-    aux (T, 256, 12). CPU tensors run the plain version; CUDA tensors launch
-    the kernels (three passes over the work list), or this raises."""
+    the slab; bg (3 + n_extra,) f32. Returns color (T, tile^2, 3 + n_extra)
+    and aux (T, tile^2, 12). CPU tensors run the plain version; CUDA tensors
+    launch the kernels (three passes over the work list), or this raises."""
+    check_tile(tile)
     if slab.device.type == "cpu":
         return forward_tiles_plain(slab, tile_start, tile_count, bg, tiles_x,
-                                   tiles_per_frame, n_extra)
+                                   tiles_per_frame, n_extra, tile)
     if slab.device.type != "cuda":
         raise ValueError(f"no tile_forward kernel for device {slab.device}")
     dev = slab.device
@@ -258,7 +276,7 @@ def forward_tiles(slab, tile_start, tile_count, bg, tiles_x: int,
     kernels.check_tensor("bg", bg, dev, (nchan,))
     lib = tile_library()
     item_off, n_blocks = work_list(tile_count, slab.shape[0])
-    px_n = TILE * TILE
+    px_n = tile * tile
     color = torch.empty((nt, px_n, nchan), dtype=torch.float32, device=dev)
     aux = torch.empty((nt, px_n, N_AUX), dtype=torch.float32, device=dev)
     trans = torch.empty((n_blocks, px_n), dtype=torch.float32, device=dev)
@@ -268,7 +286,7 @@ def forward_tiles(slab, tile_start, tile_count, bg, tiles_x: int,
         slab.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
         item_off.data_ptr(), bg.data_ptr(), trans.data_ptr(), part.data_ptr(),
         color.data_ptr(), aux.data_ptr(), nt, n_blocks, tiles_x, tiles_per_frame,
-        n_extra, kernels.stream_ptr(dev),
+        tile, n_extra, kernels.stream_ptr(dev),
     )
     kernels.check_launch(rc, "tile_forward")
     kernels.COUNTS["tile_forward"] += 1
