@@ -220,9 +220,12 @@ Phases (any failed check raises, so the exit code is non-zero):
      deterministic-algorithms mode). Prints each run's step ms (median,
      p90), host batch ms and gradient all-reduce ms per rank and peak
      memory;
- 21. [c1] (`c1_measure`, measurement only): K1 at 512^2 on small, distant
-     splats against `reference.py` in float64: the slab's rho2d error and
-     K1's alpha error (largest, share of pixels beyond 1/255);
+ 21. [c1] (`c1_gate`): K1 on small, distant splats against `reference.py`
+     in float64 at 512^2 and 1237 x 822; fails if any pixel's alpha is
+     more than 1/255 off. Prints the float32 rho2d error of the kernels'
+     splat-centred form beside the Pallas kernel's polynomial's on the same
+     splats, rho3d's, and K1's alpha error (largest, share of pixels
+     beyond 1/255);
  22. [e2e] (`e2e_path`): the end-to-end quality run
      (`vidu4d_tpu_torch.examples.synthetic_e2e.main`) at E2E_FLAGS: the
      surfel GT video (16 frames at 64^2, K1), Stage 1, Stage 2, Stage 3
@@ -424,9 +427,10 @@ DEEP = "deep chain 24k splats / one tile"
 CLI_CHECK_FRAMES = (0, 1)
 # FP32 operations per (entry, pixel) pair, counted from the kernels' source
 # (a division or an expf counts as one): the splat response and cull of
-# every pair that needs it; the compositing of an included pair is 29 + 2 X
-# more (forward), its gradient chain and column sums 105 + 4 X (backward)
-OPS_RESPONSE = 33
+# every pair that needs it (the splat-centred rho2d, FIS (dx^2 + dy^2), is 6
+# of them); the compositing of an included pair is 29 + 2 X more (forward),
+# its gradient chain and column sums 105 + 4 X (backward)
+OPS_RESPONSE = 34
 # H100 SXM, FP32 outside the tensor cores (data sheet). It counts an FMA as
 # two operations; the kernels build with -fmad=false and issue separate
 # multiplies and adds, so this bound is below what they could reach.
@@ -572,9 +576,14 @@ MG_STEP = {"metrics_rel": 1e-5, "warp_mu_rel_to_max": 1e-4, "surfel_mu_rel_to_ma
            "count_diff": MG_BOUNDARY}
 MG_HOOKS = {"hooks_rel_to_max": 1e-6}
 MG_S2_STEP = {"metrics_rel": 3e-4, "mu_rel_to_max": 1e-5, "param_over_2lr": 1.0}
-# [c1]: K1 at C1_RES^2 on C1_SPLATS small distant splats against
-# reference.py in float64 (measurement only)
-C1_RES, C1_SPLATS = 512, 192
+# [c1]: K1 on small, distant splats (c1_scene) against reference.py in
+# float64 at each (width, height, splats) of C1_RUNS: 512^2, and the static
+# path's 1237 x 822 at the same density of splats. Gate: no pixel's alpha
+# more than C1_ALPHA_TOL from the reference's (ROADMAP C1). The reference
+# evaluates C1_PIXEL_CHUNK pixels at a time.
+C1_RUNS = ((512, 512, 192), (1237, 822, 745))
+C1_ALPHA_TOL = 1.0 / 255.0
+C1_PIXEL_CHUNK = 1 << 16
 # [e2e]: the port's end-to-end quality run (`examples.synthetic_e2e.main`)
 # at the JAX main run's width (64^2, 16 frames of the surfel GT, the
 # Stage-2 / Stage-3 options of the JAX script) with the schedule cut to
@@ -698,7 +707,7 @@ def chain_batch(rng, seg, n_extra, device, tile=16):
         rows[:n, tf.PC:tf.PC + 2] = rng.uniform(-1e-4, 1e-4, (n, 2))
         rows[:n, tf.QD] = np.sort(rng.uniform(1.0, 5.0, n))
         rows[:n, tf.TW2] = rows[:n, tf.QD]
-        rows[:n, tf.E0] = 10.0  # rho2d > rho3d: the 3D branch everywhere
+        rows[:n, tf.CX:tf.CY + 1] = -100.0  # centre far off: rho2d > rho3d, the 3D branch
         rows[:n, tf.OPAC] = al
         rows[:n, tf.RGB:tf.RGB + 3] = rng.uniform(size=(n, 3))
         nrm = rng.normal(size=(n, 3))
@@ -3580,77 +3589,132 @@ def multi_gpu_path(tmp):
     return rep, counts
 
 
-def c1_measure(rng):
-    """[c1]: K1 at C1_RES^2 on C1_SPLATS small, distant splats spread over
-    the image (depth 20-40, 0.5-2 px across, so the 2D filter's rho2d
-    decides their response) against `reference.py` evaluated in float64
-    on the float64 projection (ROADMAP C1: the slab's rho2d is a
-    polynomial in absolute pixel coordinates, FIS (px^2 + py^2) + E0 +
-    px E1 + py E2, whose terms reach FIS * 2 * 512^2). Measurement only:
-    the largest rho2d error of that float32 polynomial (the kernel's, on
-    the slab's coefficients) over each splat's 9 x 9 pixels where the exact
-    rho2d < 10, beside the float32 centred form's; K1's alpha against the
-    float64 reference's: the largest error and the share of pixels (and of
-    covered pixels, reference alpha > 1/255) beyond 1/255."""
-    import torch
-
-    from vidu4d_tpu_torch.ops.rasterize import common, reference
-    from vidu4d_tpu_torch.ops.rasterize.tile_backward import composite_batch, prepare_batch
-
-    n, res = C1_SPLATS, C1_RES
+def c1_scene(rng, n, width, height, box=None):
+    """[c1]'s splats: n small, distant splats (depth 20-40, 0.5-2 px
+    across, opacity 0.3-0.9, so that the 2D filter's rho2d decides much of
+    their response) whose centres fall in box = (x0, x1, y0, y1) of a width
+    x height frame (default: the whole frame, 8 px in from its edges), seen
+    by the identity camera at focal length `width`. Returns float64 numpy
+    (means, quats, scales, opacities, colours, intrinsics (1, 4))."""
+    x0, x1, y0, y1 = box or (8, width - 8, 8, height - 8)
     z = rng.uniform(20.0, 40.0, n)
-    u, v = rng.uniform(8, res - 8, n), rng.uniform(8, res - 8, n)
-    f, c = float(res), res / 2.0
-    means = np.stack([(u - c) * z / f, (v - c) * z / f, z], -1)
+    u, v = rng.uniform(x0, x1, n), rng.uniform(y0, y1, n)
+    f, cx, cy = float(width), width / 2.0, height / 2.0
+    means = np.stack([(u - cx) * z / f, (v - cy) * z / f, z], -1)
     scales = rng.uniform(0.5, 2.0, (n, 2)) * z[:, None] / f
     quats = rng.normal(size=(n, 4))
     opac = rng.uniform(0.3, 0.9, n)
     colors = rng.uniform(size=(n, 3))
+    return means, quats, scales, opac, colors, np.array([[f, f, cx, cy]])
 
-    def project(dtype):
-        t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device="cuda")
-        return common.project_splats(t(means)[None], t(quats)[None], t(scales),
-                                     torch.eye(4, dtype=dtype, device="cuda"),
-                                     t([[f, f, c, c]]))
 
-    p32, p64 = project(torch.float32), project(torch.float64)
-    t32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+def c1_project(scene, dtype, device, means=None):
+    """A c1_scene's projection, (1, P) fields, in `dtype` on `device`
+    (`means` replaces the scene's, e.g. a leaf that requires grad)."""
+    import torch
+
+    from vidu4d_tpu_torch.ops.rasterize import common
+
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    m, quats, scales, _, _, intr = scene
+    return common.project_splats(t(m)[None] if means is None else means[None],
+                                 t(quats)[None], t(scales),
+                                 torch.eye(4, dtype=dtype, device=device), t(intr))
+
+
+def c1_gate(rng, width, height, n):
+    """[c1]: K1 at width x height on n c1_scene splats against
+    `reference.py` in float64 on the float64 projection (ROADMAP C1). The
+    kernels evaluate rho2d in splat-centred coordinates, FIS ((cx - px)^2
+    + (cy - py)^2); the Pallas kernel's polynomial in absolute pixel
+    coordinates, FIS (px^2 + py^2) + E0 + px E1 + py E2, has float32 terms
+    that reach FIS (width^2 + height^2). Over each splat's 9 x 9 pixels
+    where the float64 value is < 10: the largest float32 error of rho2d in
+    both forms (the polynomial on the float32 centres, as the slab held it
+    before, and the kernels' form through `splat_response` on the slab),
+    and of rho3d (the slab's A + px B + py C); the share of those pairs
+    that the 2D branch decides. K1's alpha against the reference's: the
+    largest error, the share of pixels beyond C1_ALPHA_TOL, of all and of
+    covered ones (reference alpha > 1/255). The gated reference restricts
+    each splat to the tiles that K1 binned it to (the rects of the float32
+    projection): the radius is ceil(3 sigma) pixels, and float32 and
+    float64 round it to different integers for a few splats, which moves
+    a rect edge by a tile and cuts a splat's tail there at alpha ~0.01.
+    Printed beside it, not gated: the splats whose rects differ and the
+    largest alpha error against the reference on its own rects. Raises
+    unless no pixel is beyond C1_ALPHA_TOL."""
+    import torch
+
+    from vidu4d_tpu_torch.ops.rasterize import common, reference
+    from vidu4d_tpu_torch.ops.rasterize import tile_forward as tf
+    from vidu4d_tpu_torch.ops.rasterize.tile_backward import composite_batch, prepare_batch
+
+    scene = c1_scene(rng, n, width, height)
+    _, _, _, opac, colors, _ = scene
+    p32, p64 = (c1_project(scene, dt, "cuda") for dt in (torch.float32, torch.float64))
+    t = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt, device="cuda")
+    frame = lambda p: common.SplatProjection(*[x[0] for x in p])
     with torch.no_grad():
-        prepared = prepare_batch(p32, t32(colors)[None], t32(opac), t32(np.zeros(3)), res, res)
-        alpha_k = composite_batch(prepared, res, res).alpha[0].double()
-        one = common.SplatProjection(*[x[0] for x in p64])
-        alpha_ref = reference.rasterize_naive_from_projection(
-            one, torch.as_tensor(colors, device="cuda"), torch.as_tensor(opac, device="cuda"),
-            torch.zeros(3, dtype=torch.float64, device="cuda"), res, res).alpha
+        prepared = prepare_batch(p32, t(colors, torch.float32)[None],
+                                 t(opac, torch.float32), t(np.zeros(3), torch.float32),
+                                 height, width)
+        alpha_k = composite_batch(prepared, height, width).alpha[0].double()
+        rects32, rects64 = (common.compute_tile_rects(frame(p), height, width, tf.TILE, 4)
+                            for p in (p32, p64))
+        alpha_ref, alpha_own = (reference.rasterize_naive_from_projection(
+            frame(p64), t(colors, torch.float64), t(opac, torch.float64),
+            torch.zeros(3, dtype=torch.float64, device="cuda"), height, width,
+            pixel_chunk=C1_PIXEL_CHUNK, rects=r).alpha for r in (rects32, None))
         torch.cuda.synchronize()
-        # rho2d over each splat's 9 x 9 pixel centres
-        fis = common.FILTER_INV_SQUARE
+        # each splat's 9 x 9 pixel centres, (P, 1, 81)
         off = torch.arange(-4, 5, device="cuda", dtype=torch.float64)
         c64 = p64.center2d[0]
-        px = (torch.floor(c64[:, 0:1]) + 0.5 + off[None, :])[:, None, :]
-        py = (torch.floor(c64[:, 1:2]) + 0.5 + off[None, :])[:, :, None]
-        exact = fis * ((c64[:, 0, None, None] - px) ** 2 + (c64[:, 1, None, None] - py) ** 2)
+        px = (torch.floor(c64[:, 0:1]) + 0.5 + off.repeat(9)[None, :])[:, None, :]
+        py = (torch.floor(c64[:, 1:2]) + 0.5 + off.repeat_interleave(9)[None, :])[:, None, :]
+        ids = torch.arange(n, device="cuda")
+
+        def response(p, x, y):
+            rows = tf.pack_props(frame(p), t(colors, p.tu.dtype), t(opac, p.tu.dtype),
+                                 ids)[:, None, :]
+            r = tf.splat_response(rows, x, y)
+            return r["rho3d"], common.FILTER_INV_SQUARE * (r["dx"] ** 2 + r["dy"] ** 2)
+
+        rho3d_64, rho2d_64 = response(p64, px, py)
+        rho3d_32, rho2d_32 = response(p32, px.float(), py.float())
         cx, cy = p32.center2d[0, :, 0, None, None], p32.center2d[0, :, 1, None, None]
         pxf, pyf = px.float(), py.float()
+        fis = common.FILTER_INV_SQUARE
         poly = (fis * (pxf * pxf + pyf * pyf) + fis * (cx * cx + cy * cy)
                 + pxf * (-2.0 * fis * cx) + pyf * (-2.0 * fis * cy))
-        centred = fis * ((cx - pxf) ** 2 + (cy - pyf) ** 2)
-        near = (exact < 10.0) & p64.valid[0][:, None, None]
-        err = lambda x: float(((x.double() - exact).abs() * near).max())
+        valid = p64.valid[0][:, None, None]
+        err = lambda x, exact: float(((x.double() - exact).abs()
+                                      * ((exact < 10.0) & valid)).max())
+        seen = (torch.minimum(rho3d_64, rho2d_64) < 10.0) & valid
         diff = (alpha_k - alpha_ref).abs()
+        moved = sum(getattr(rects32, k) != getattr(rects64, k)
+                    for k in ("min_x", "min_y", "span_x", "span_y")) > 0
         covered = alpha_ref > 1.0 / 255.0
-    out = {"res": res, "splats": n, "valid": int(p64.valid.sum()),
-           "max_rho2d_err_poly": err(poly), "max_rho2d_err_centred": err(centred),
+        beyond = diff > C1_ALPHA_TOL
+    out = {"width": width, "height": height, "splats": n, "valid": int(p64.valid.sum()),
+           "max_rho2d_err_poly": err(poly, rho2d_64),
+           "max_rho2d_err_centred": err(rho2d_32, rho2d_64),
+           "max_rho3d_err": err(rho3d_32, rho3d_64),
+           "share_pairs_2d_branch": float(((rho2d_64 < rho3d_64) & seen).sum()
+                                          / max(int(seen.sum()), 1)),
            "max_alpha_err": float(diff.max()),
-           "share_px_alpha_err_over_1_255": float((diff > 1.0 / 255.0).double().mean()),
+           "share_px_alpha_err_over_1_255": float(beyond.double().mean()),
            "covered_px": int(covered.sum()),
-           "share_covered_px_over_1_255": float(((diff > 1.0 / 255.0) & covered).sum()
-                                                / max(int(covered.sum()), 1))}
-    log(f"[c1 {res}^2] {json.dumps(out)}")
+           "share_covered_px_over_1_255": float((beyond & covered).sum()
+                                                / max(int(covered.sum()), 1)),
+           "splats_rects_differ": int(moved.sum()),
+           "max_alpha_err_own_rects": float((alpha_k - alpha_own).abs().max())}
+    log(f"[c1 {width}x{height}] {json.dumps(out)}")
     if not all(np.isfinite(x) for x in out.values()):
         raise AssertionError(f"[c1] non-finite measurement: {out}")
+    if out["max_alpha_err"] > C1_ALPHA_TOL or out["share_covered_px_over_1_255"] > 0:
+        raise AssertionError(f"[c1 {width}x{height}] K1's alpha is more than 1/255 from "
+                             f"the float64 reference: {out}")
     return out
-
 
 
 def e2e_path(tmp, rng):
@@ -4001,7 +4065,9 @@ def main() -> int:
         mg_rep, mg_counts = multi_gpu_path(tmp)
         log(f"[multi-gpu wall] {time.perf_counter() - t0:.1f} s")
         # [c1]: K1 against exact math on small, distant splats
-        c1_rep = c1_measure(rng)
+        t0 = time.perf_counter()
+        c1_reps = [c1_gate(rng, w, h, n) for w, h, n in C1_RUNS]
+        log(f"[c1 wall] {time.perf_counter() - t0:.1f} s")
         # [e2e]: GT video -> Stage 1 -> 2 -> 3 -> render, scored; then the
         # two depth scorers
         t0 = time.perf_counter()
@@ -4147,9 +4213,11 @@ def main() -> int:
         f"{mg_rep['main']['rank1']['step_ms_median']:.3f} ms per rank, gradient all-reduce "
         f"{float(np.median(mg_rep['main']['rank0']['allreduce_ms'])):.3f} ms; stage 2 step "
         f"{mg_rep['stage2']['one']['step_ms_median']:.3f} ms one process, "
-        f"{mg_rep['stage2']['rank0']['step_ms_median']:.3f} ms per rank; c1 at {C1_RES}^2: "
-        f"max alpha err {c1_rep['max_alpha_err']:.3g}, rho2d err "
-        f"{c1_rep['max_rho2d_err_poly']:.3g} (centred {c1_rep['max_rho2d_err_centred']:.3g}); "
+        f"{mg_rep['stage2']['rank0']['step_ms_median']:.3f} ms per rank; c1: "
+        + ", ".join(f"{c['width']}x{c['height']} max alpha err {c['max_alpha_err']:.3g}, "
+                    f"rho2d err {c['max_rho2d_err_centred']:.3g} (polynomial "
+                    f"{c['max_rho2d_err_poly']:.3g}), rho3d err {c['max_rho3d_err']:.3g}"
+                    for c in c1_reps) + "; "
         f"e2e ({' '.join(E2E_FLAGS)}): {e2e_rep['wall_s']:.1f} s (stage 1 "
         f"{e2e_rep['stage1_s']} s, stage 2 {e2e_rep['stage2_s']} s, stage 3 "
         f"{e2e_rep['stage3_s']} s), steps {e2e_rep['stage2_step_ms_median']:.3f} / "

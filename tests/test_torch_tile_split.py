@@ -238,7 +238,8 @@ def mirror_backward(b, cot, resid, seg):
     use3d = r["use3d"]
     ipz = torch.where(ok, r["ipz"], 0.0)
     rho3d = torch.where(ok, r["rho3d"], 0.0)
-    g_rho3, g_rho2 = torch.where(use3d, g_rho, 0.0), torch.where(use3d, 0.0, g_rho)
+    g_rho3 = torch.where(use3d, g_rho, 0.0)
+    g_c2 = torch.where(use3d, 0.0, 2.0 * tc.FILTER_INV_SQUARE * g_rho)
     g_d3, g_d2 = torch.where(use3d, g_depth, 0.0), torch.where(use3d, 0.0, g_depth)
     g_px = 2.0 * r["px"] * ipz * ipz * g_rho3
     g_py = 2.0 * r["py"] * ipz * ipz * g_rho3
@@ -249,8 +250,8 @@ def mirror_backward(b, cot, resid, seg):
     for ch, v in ((tf.PA, g_px), (tf.PA + 1, g_py), (tf.PA + 2, g_pz),
                   (tf.PB, px * g_px), (tf.PB + 1, px * g_py), (tf.PB + 2, px * g_pz),
                   (tf.PC, py * g_px), (tf.PC + 1, py * g_py), (tf.PC + 2, py * g_pz),
-                  (tf.QD, ipz * g_d3), (tf.TW2, g_d2), (tf.E0, g_rho2),
-                  (tf.E1, px * g_rho2), (tf.E2, py * g_rho2), (tf.OPAC, g_opac)):
+                  (tf.QD, ipz * g_d3), (tf.TW2, g_d2), (tf.CX, r["dx"] * g_c2),
+                  (tf.CY, r["dy"] * g_c2), (tf.OPAC, g_opac)):
         out[..., ch] = psum(v)
     for i in range(3):
         out[..., tf.RGB + i] = psum(w * g_c[:, None, :, i])
@@ -332,3 +333,38 @@ def test_cuda_split_kernels_match_plain(case):
     bw = (b["slab"], b["tile_start"], b["tile_count"], cot, resid)
     chip_smoke.check_backward(tb.backward_tiles_plain(*bw, *_geo(b)),
                               tb.backward_tiles(*bw, *_geo(b)), case)
+
+
+def _far_corner(device, tile):
+    """tests/test_torch_c1.py's scene (16 small, distant splats in the far
+    corner of a 512^2 frame, where the response's 2D branch is evaluated
+    ~500 px from the origin), binned at ``tile``."""
+    scene = chip_smoke.c1_scene(np.random.default_rng(0), 16, 512, 512, (400, 504, 400, 504))
+    _, _, _, opac, colors, _ = scene
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)
+    with torch.no_grad():
+        proj = chip_smoke.c1_project(scene, torch.float32, device)
+        return tb.prepare_batch(proj, t(colors)[None], t(opac), t(np.zeros(3)), 512, 512,
+                                tile=tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", tf.TILE_SIDES)
+def test_cuda_kernels_match_plain_far_from_origin(tile):
+    """K1 and K2 against their plain versions on the far-corner scene at
+    each tile side (needs nvcc + a GPU)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    b = _far_corner("cuda", tile)
+    geo = (*_geo(b), tile)
+    args = (b["slab"], b["tile_start"], b["tile_count"], b["bg"])
+    got = tf.forward_tiles(*args, *geo)
+    name = f"far corner tile {tile}"
+    chip_smoke.check_forward(tf.forward_tiles_plain(*args, *geo), got, name)
+    g = torch.Generator().manual_seed(0)
+    cot = torch.randn((b["tile_start"].shape[0], tile * tile, 10 + b["n_extra"]),
+                      generator=g).cuda()
+    bw = (b["slab"], b["tile_start"], b["tile_count"], cot, got[1][..., 8:12].contiguous())
+    g_p = tb.backward_tiles_plain(*bw, *geo)
+    assert float(g_p[:, tf.CX:tf.CY + 1].abs().max()) > 0  # the 2D branch's rows
+    chip_smoke.check_backward(g_p, tb.backward_tiles(*bw, *geo), name)

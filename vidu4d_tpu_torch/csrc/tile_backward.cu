@@ -167,7 +167,7 @@ tile_bwd_transmit(const float* __restrict__ slab, const int* __restrict__ tile_s
             break;
           }
           const float* row = st + k * kF;
-          const Response r = splat_response(row, px[j].x, px[j].y, px[j].q);
+          const Response r = splat_response(row, px[j].x, px[j].y);
           const float alpha = min_nan(r.alpha_raw, kAlphaClamp);
           if (!is_candidate(r, alpha)) continue;
           const float mdepth = ndc_depth(fmaxf(r.depth, 1e-6f));
@@ -266,18 +266,18 @@ tile_bwd_grad(const float* __restrict__ slab, const int* __restrict__ tile_start
 
     for (int k = m - 1; k >= 0; --k) {
       const float* row = st + k * kF;
-      float g_px[kPPT], g_py[kPPT], g_pz[kPPT], g_q[kPPT], g_d2[kPPT], g_rho2[kPPT];
-      float g_opac[kPPT], w[kPPT];
+      float g_px[kPPT], g_py[kPPT], g_pz[kPPT], g_q[kPPT], g_d2[kPPT];
+      float g_cx[kPPT], g_cy[kPPT], g_opac[kPPT], w[kPPT];
       bool any_ok = false;
 #pragma unroll
       for (int j = 0; j < kPPT; ++j) {
         const PixelCot& qj = q[j];
         const int lin = threadIdx.x + j * S::kThreads;
-        const Response r = splat_response(row, px[j].x, px[j].y, px[j].q);
+        const Response r = splat_response(row, px[j].x, px[j].y);
         const bool clamped = r.alpha_raw > kAlphaClamp;
         const float alpha = min_nan(r.alpha_raw, kAlphaClamp);
         const bool ok = is_candidate(r, alpha) && (float)(rank0 + gbase + k) < qj.n_contrib;
-        g_px[j] = g_py[j] = g_pz[j] = g_q[j] = g_d2[j] = g_rho2[j] = 0.f;
+        g_px[j] = g_py[j] = g_pz[j] = g_q[j] = g_d2[j] = g_cx[j] = g_cy[j] = 0.f;
         g_opac[j] = w[j] = 0.f;
         if (ok) {
           const float om = 1.0f - alpha;
@@ -305,7 +305,11 @@ tile_bwd_grad(const float* __restrict__ slab, const int* __restrict__ tile_start
               ? (kFar * kNear) / ((kFar - kNear) * depth_pos * depth_pos) : 0.0f;
           const float g_depth = w[j] * qj.gD + g_m * dmdd;
           const float g_rho3 = r.use3d ? g_rho : 0.0f;
-          g_rho2[j] = r.use3d ? 0.0f : g_rho;
+          // the centre's gradient, 2 FIS dx g_rho2, per pixel: summing
+          // cx * g - px * g instead would bring the cancellation back
+          const float g_c2 = r.use3d ? 0.0f : 2.0f * kFilterInvSquare * g_rho;
+          g_cx[j] = r.dx * g_c2;
+          g_cy[j] = r.dy * g_c2;
           const float g_d3 = r.use3d ? g_depth : 0.0f;
           g_d2[j] = r.use3d ? 0.0f : g_depth;
           const float ipz2 = r.ipz * r.ipz;
@@ -332,9 +336,9 @@ tile_bwd_grad(const float* __restrict__ slab, const int* __restrict__ tile_start
         v[kPC + 2] = pix_sum<kPPT>([&](int j) { return px[j].y * g_pz[j]; });
         v[kQD] = pix_sum<kPPT>([&](int j) { return g_q[j]; });
         v[kTW2] = pix_sum<kPPT>([&](int j) { return g_d2[j]; });
-        v[kE0] = pix_sum<kPPT>([&](int j) { return g_rho2[j]; });
-        v[kE1] = pix_sum<kPPT>([&](int j) { return px[j].x * g_rho2[j]; });
-        v[kE2] = pix_sum<kPPT>([&](int j) { return px[j].y * g_rho2[j]; });
+        v[kCX] = pix_sum<kPPT>([&](int j) { return g_cx[j]; });
+        v[kCY] = pix_sum<kPPT>([&](int j) { return g_cy[j]; });
+        v[kCY + 1] = 0.0f;  // the spare column
         v[kOPAC] = pix_sum<kPPT>([&](int j) { return g_opac[j]; });
         v[kRGB] = pix_sum<kPPT>([&](int j) { return w[j] * q[j].gC0; });
         const float lo = reduce16(v, lane);  // columns 0-15

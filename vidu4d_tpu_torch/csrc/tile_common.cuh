@@ -7,8 +7,12 @@
 // vidu4d_tpu_torch/ops/rasterize/tile_forward.py:pack_props. Its columns are
 // the JAX package's (vidu4d_tpu/ops/rasterize/pallas_kernel.py:60-73): the
 // two-plane intersection in affine form p = A + px*B + py*C, the 3D-branch
-// depth numerator q = det(Tu, Tv, Tw), Tw.z, the rho2d polynomial
-// coefficients, opacity, RGB, normal, then the extra channels.
+// depth numerator q = det(Tu, Tv, Tw), Tw.z, opacity, RGB, normal, then the
+// extra channels; but where the Pallas kernel stores the 2D low-pass term
+// as a polynomial in absolute pixel coordinates (whose float32 terms reach
+// kFilterInvSquare * (px^2 + py^2) and cancel), the slab holds the splat's
+// projected centre and the response evaluates the term in splat-centred
+// coordinates, as the reference does (compositing.py).
 //
 // Tile side. Every kernel is a template over the side TILE, instantiated
 // for kTileSides (8, 16, 32); the C entry points pick one by value. A block
@@ -47,7 +51,8 @@ struct TileShape {
 
 constexpr int kF = 32;                  // slab row width (floats)
 constexpr int kPA = 0, kPB = 3, kPC = 6, kQD = 9, kTW2 = 10;
-constexpr int kE0 = 11, kE1 = 12, kE2 = 13, kOPAC = 14, kRGB = 15, kNRM = 18;
+constexpr int kCX = 11, kCY = 12;      // projected centre (pixels); column 13 is spare
+constexpr int kOPAC = 14, kRGB = 15, kNRM = 18;
 constexpr int kEXTRA = 21;
 constexpr int kMaxExtra = kF - kEXTRA;  // 11
 constexpr int kChunk = 128;             // slab rows per staged step (16 KB)
@@ -65,6 +70,7 @@ constexpr float kAlphaClamp = 0.99f;
 struct Response {
   float px, py, pz;   // homogeneous intersection p = A + px*B + py*C
   float ipz;          // 1 / pz (1 where pz == 0)
+  float dx, dy;       // splat-centred offsets cx - px, cy - py of the 2D branch
   float rho3d, rho2d, rho;
   float depth;        // q / pz on the 3D branch, Tw.z on the 2D branch
   float g;            // exp(-rho / 2)
@@ -78,7 +84,7 @@ __device__ __forceinline__ float min_nan(float a, float b) {
 }
 
 __device__ __forceinline__ Response splat_response(const float* row, float pxf,
-                                                   float pyf, float pq) {
+                                                   float pyf) {
   Response r;
   r.px = row[kPA] + pxf * row[kPB] + pyf * row[kPC];
   r.py = row[kPA + 1] + pxf * row[kPB + 1] + pyf * row[kPC + 1];
@@ -86,7 +92,9 @@ __device__ __forceinline__ Response splat_response(const float* row, float pxf,
   r.pz_ok = r.pz != 0.0f;
   r.ipz = 1.0f / (r.pz_ok ? r.pz : 1.0f);
   r.rho3d = (r.px * r.px + r.py * r.py) * (r.ipz * r.ipz);
-  r.rho2d = pq + row[kE0] + pxf * row[kE1] + pyf * row[kE2];
+  r.dx = row[kCX] - pxf;
+  r.dy = row[kCY] - pyf;
+  r.rho2d = kFilterInvSquare * (r.dx * r.dx + r.dy * r.dy);
   r.use3d = r.rho3d <= r.rho2d;
   r.rho = min_nan(r.rho3d, r.rho2d);
   r.depth = r.use3d ? row[kQD] * r.ipz : row[kTW2];
@@ -108,7 +116,7 @@ __device__ __forceinline__ float ndc_depth(float depth_pos) {
 // Absolute centre of pixel `lin` (row-major in the tile) of a (frame, tile)
 // block.
 struct Pixel {
-  float x, y, q;  // q = kFilterInvSquare * (x^2 + y^2)
+  float x, y;
 };
 
 template <int TILE>
@@ -118,7 +126,6 @@ __device__ __forceinline__ Pixel pixel_of(int tile, int lin, int tiles_x,
   Pixel p;
   p.x = (float)((tl % tiles_x) * TILE + lin % TILE) + 0.5f;
   p.y = (float)((tl / tiles_x) * TILE + lin / TILE) + 0.5f;
-  p.q = kFilterInvSquare * (p.x * p.x + p.y * p.y);
   return p;
 }
 

@@ -139,7 +139,7 @@ tile_fwd_transmit(const float* __restrict__ slab, const int* __restrict__ tile_s
     for (int j = 0; j < S::kPPT; ++j) {
       if (live[j]) {
         for (int k = 0; k < m; ++k) {
-          const Response r = splat_response(st + k * kF, px[j].x, px[j].y, px[j].q);
+          const Response r = splat_response(st + k * kF, px[j].x, px[j].y);
           const float alpha = min_nan(r.alpha_raw, kAlphaClamp);
           if (!is_candidate(r, alpha)) continue;
           P[j] *= 1.0f - alpha;
@@ -219,7 +219,7 @@ tile_fwd_composite(const float* __restrict__ slab, const int* __restrict__ tile_
         if (live[j]) {
           for (int k = 0; k < m; ++k) {
             const float* row = st + k * kF;
-            const Response r = splat_response(row, px[j].x, px[j].y, px[j].q);
+            const Response r = splat_response(row, px[j].x, px[j].y);
             const float alpha = min_nan(r.alpha_raw, kAlphaClamp);
             if (!is_candidate(r, alpha)) continue;
             const float t_next = aj.T * (1.0f - alpha);

@@ -21,13 +21,21 @@ from vidu4d_tpu_torch.ops.rasterize.compositing import (
 
 def rasterize_naive_from_projection(proj, colors, opacities, bg_color,
                                     height: int, width: int, tile: int = 16,
-                                    span_cap: int = 4) -> CompositeOutput:
+                                    span_cap: int = 4,
+                                    pixel_chunk: int = 0,
+                                    rects=None) -> CompositeOutput:
+    """pixel_chunk > 0 evaluates the pixels that many at a time, which
+    bounds the (splats, pixels) intermediates; each pixel composites on its
+    own, so the result is the same. ``rects`` (`common.compute_tile_rects`
+    of another projection of the same splats, such as the float32 one that
+    a kernel binned) replaces the tile rects of ``proj``'s own."""
     tiles_y, tiles_x = common.tile_grid_shape(height, width, tile)
     num_tiles = tiles_x * tiles_y
     depth_bits = 30 - max(1, math.ceil(math.log2(max(num_tiles, 2))))
     order = torch.sort(common.quantize_depth(proj.depth, depth_bits),
                        stable=True).indices
-    rects = common.compute_tile_rects(proj, height, width, tile, span_cap)
+    if rects is None:
+        rects = common.compute_tile_rects(proj, height, width, tile, span_cap)
     g = lambda x: x[order]
 
     dev = proj.tu.device
@@ -37,17 +45,20 @@ def rasterize_naive_from_projection(proj, colors, opacities, bg_color,
     ptx = (xs // tile).reshape(-1)
     pty = (ys // tile).reshape(-1)
 
-    alpha, depth = splat_pixel_response(
-        g(proj.tu)[:, None, :], g(proj.tv)[:, None, :], g(proj.tw)[:, None, :],
-        g(proj.center2d)[:, None, :], g(opacities)[:, None], pix[None, :, :],
-    )
+    splat = [g(x)[:, None] for x in (proj.tu, proj.tv, proj.tw, proj.center2d, opacities)]
     min_x, min_y = g(rects.min_x)[:, None], g(rects.min_y)[:, None]
-    in_rect = (
-        (ptx[None, :] >= min_x) & (ptx[None, :] < min_x + g(rects.span_x)[:, None])
-        & (pty[None, :] >= min_y) & (pty[None, :] < min_y + g(rects.span_y)[:, None])
-        & g(rects.valid)[:, None]
-    )
-    alpha = torch.where(in_rect, alpha, torch.zeros_like(alpha))
-    out = composite(alpha, depth, g(colors)[:, None, :], g(proj.normal)[:, None, :],
-                    bg_color)
-    return CompositeOutput(*[f.reshape((height, width) + f.shape[1:]) for f in out])
+    step = pixel_chunk or height * width
+    parts = []
+    for s in range(0, height * width, step):
+        tx, ty = ptx[None, s:s + step], pty[None, s:s + step]
+        alpha, depth = splat_pixel_response(*splat, pix[None, s:s + step, :])
+        in_rect = (
+            (tx >= min_x) & (tx < min_x + g(rects.span_x)[:, None])
+            & (ty >= min_y) & (ty < min_y + g(rects.span_y)[:, None])
+            & g(rects.valid)[:, None]
+        )
+        alpha = torch.where(in_rect, alpha, torch.zeros_like(alpha))
+        parts.append(composite(alpha, depth, g(colors)[:, None, :],
+                               g(proj.normal)[:, None, :], bg_color))
+    return CompositeOutput(*[torch.cat(f).reshape((height, width) + f[0].shape[1:])
+                             for f in zip(*parts)])

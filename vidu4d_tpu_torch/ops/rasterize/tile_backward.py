@@ -20,7 +20,7 @@ from vidu4d_tpu_torch import kernels
 from vidu4d_tpu_torch.ops.rasterize import common
 from vidu4d_tpu_torch.ops.rasterize.compositing import CompositeOutput
 from vidu4d_tpu_torch.ops.rasterize.tile_forward import (
-    CHUNK, E0, E1, E2, EXTRA, NRM, OPAC, PA, PB, PC, QD, RGB, SLAB_WIDTH,
+    CHUNK, CX, CY, EXTRA, NRM, OPAC, PA, PB, PC, QD, RGB, SLAB_WIDTH,
     TILE, TW2, _pixel_centers, check_tile, forward_tiles, ndc_depth, pack_props,
     splat_response, tile_library, work_list,
 )
@@ -53,10 +53,11 @@ def backward_tiles_plain(slab, tile_start, tile_count, cot, resid,
 
     count_eff = torch.minimum(
         tile_count, torch.ceil(torch.amax(resid[..., 1], dim=1)).to(torch.int32))
-    n_chunks = -(-int(count_eff.max()) // CHUNK)
+    max_count = int(count_eff.max())
+    n_chunks = -(-max_count // CHUNK)
     t_after = resid[..., 0].clone()
     s_gw = torch.zeros_like(t_after)
-    k = torch.arange(CHUNK, device=dev)
+    k = torch.arange(min(CHUNK, max_count), device=dev)  # shallow tiles: one short step
     for c in reversed(range(n_chunks)):
         rank = c * CHUNK + k
         valid = rank[None, :] < tile_count[:, None]
@@ -108,7 +109,8 @@ def backward_tiles_plain(slab, tile_start, tile_count, cot, resid,
         ipz2_g = ipz_g * ipz_g
         rho3d_g = torch.where(ok, r["rho3d"], 0.0)
         g_rho3 = torch.where(use3d, g_rho, 0.0)
-        g_rho2 = torch.where(use3d, 0.0, g_rho)
+        # d rho2d / d cx = 2 FIS dx, summed pixel by pixel (no expansion)
+        g_c2 = torch.where(use3d, 0.0, 2.0 * common.FILTER_INV_SQUARE * g_rho)
         g_d3 = torch.where(use3d, g_depth, 0.0)
         g_d2 = torch.where(use3d, 0.0, g_depth)
         g_px = 2.0 * r["px"] * ipz2_g * g_rho3
@@ -124,8 +126,8 @@ def backward_tiles_plain(slab, tile_start, tile_count, cot, resid,
             (PA, g_px), (PA + 1, g_py), (PA + 2, g_pz),
             (PB, px3 * g_px), (PB + 1, px3 * g_py), (PB + 2, px3 * g_pz),
             (PC, py3 * g_px), (PC + 1, py3 * g_py), (PC + 2, py3 * g_pz),
-            (QD, g_q), (TW2, g_d2), (E0, g_rho2), (E1, px3 * g_rho2),
-            (E2, py3 * g_rho2), (OPAC, g_opac),
+            (QD, g_q), (TW2, g_d2), (CX, r["dx"] * g_c2), (CY, r["dy"] * g_c2),
+            (OPAC, g_opac),
         ):
             out[..., ch] = psum(x)
         for i in range(3):

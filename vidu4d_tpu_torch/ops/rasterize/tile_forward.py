@@ -4,11 +4,14 @@
 `pack_props` gathers per-splat properties into an entry-major ``(E, 32)``
 slab, one row per depth-sorted tile entry (the row layout of the JAX
 package: the two-plane intersection in affine-coefficient form, so that the
-per (entry, pixel) work is ~2 FMAs per component). `forward_tiles` runs the
-forward compositor over every (frame, tile): the hand-written CUDA kernels
-of ``csrc/tile_forward.cu`` for tensors on a CUDA device, its plain PyTorch
-version `forward_tiles_plain` for tensors on the CPU. There is no fallback
-from one to the other.
+per (entry, pixel) work is ~2 FMAs per component; but the 2D low-pass term
+reads the splat's projected centre and is evaluated in splat-centred
+coordinates, as `compositing.py` does, not as the Pallas kernel's
+polynomial in absolute pixel coordinates, whose float32 terms cancel).
+`forward_tiles` runs the forward compositor over every (frame, tile): the
+hand-written CUDA kernels of ``csrc/tile_forward.cu`` for tensors on a CUDA
+device, its plain PyTorch version `forward_tiles_plain` for tensors on the
+CPU. There is no fallback from one to the other.
 
 The tile side is an argument of the compositor and its plain version, as
 JAX's `RasterizeConfig.tile` (`TILE_SIDES`: the kernels are instantiated
@@ -32,7 +35,7 @@ SLAB_WIDTH = 32
 PA, PB, PC = 0, 3, 6  # A = Tu x Tv, B = Tv x Tw, C = Tw x Tu (3 each)
 QD = 9      # q = det(Tu, Tv, Tw): 3D-branch depth numerator
 TW2 = 10    # Tw.z: 2D-branch depth
-E0, E1, E2 = 11, 12, 13  # rho2d = FIS*(px^2+py^2) + E0 + px*E1 + py*E2
+CX, CY = 11, 12  # projected centre: rho2d = FIS*((cx-px)^2 + (cy-py)^2); 13 is spare
 OPAC = 14
 RGB = 15
 NRM = 18
@@ -133,16 +136,12 @@ def pack_props(proj: common.SplatProjection, colors: torch.Tensor,
     b = torch.linalg.cross(tv, tw, dim=-1)
     c = torch.linalg.cross(tw, tu, dim=-1)
     q = torch.sum(a * tw, dim=-1, keepdim=True)
-    cx = proj.center2d[:, :1]
-    cy = proj.center2d[:, 1:2]
-    fis = common.FILTER_INV_SQUARE
+    zeros = lambda k: torch.zeros((p, k), dtype=tu.dtype, device=tu.device)
     props = torch.cat(
         [
-            a, b, c, q, tw[:, 2:3],
-            fis * (cx * cx + cy * cy), -2.0 * fis * cx, -2.0 * fis * cy,
+            a, b, c, q, tw[:, 2:3], proj.center2d, zeros(1),
             opacities[:, None], colors[:, :3], proj.normal, colors[:, 3:],
-            torch.zeros((p, SLAB_WIDTH - EXTRA - n_extra), dtype=tu.dtype,
-                        device=tu.device),
+            zeros(SLAB_WIDTH - EXTRA - n_extra),
         ],
         dim=-1,
     )
@@ -163,7 +162,8 @@ def _pixel_centers(num_tiles: int, tiles_x: int, tiles_per_frame: int,
 def splat_response(rows, pxf, pyf):
     """Per (entry, pixel) response from (T, K, 32) rows and (T, 1, tile^2)
     pixel centres: the plain versions' copy of ``splat_response`` in
-    csrc/tile_common.cuh. Returns a dict of (T, K, tile^2) tensors."""
+    csrc/tile_common.cuh. Returns a dict of (T, K, tile^2) tensors; dx, dy
+    are the splat-centred offsets cx - px, cy - py of the 2D branch."""
     r = lambda i: rows[..., i:i + 1]
     px_ = r(PA) + pxf * r(PB) + pyf * r(PC)
     py_ = r(PA + 1) + pxf * r(PB + 1) + pyf * r(PC + 1)
@@ -171,13 +171,14 @@ def splat_response(rows, pxf, pyf):
     pz_ok = pz_ != 0.0
     ipz = 1.0 / torch.where(pz_ok, pz_, torch.ones_like(pz_))
     rho3d = (px_ * px_ + py_ * py_) * (ipz * ipz)
-    pq = common.FILTER_INV_SQUARE * (pxf * pxf + pyf * pyf)
-    rho2d = pq + r(E0) + pxf * r(E1) + pyf * r(E2)
+    dx = r(CX) - pxf
+    dy = r(CY) - pyf
+    rho2d = common.FILTER_INV_SQUARE * (dx * dx + dy * dy)
     use3d = rho3d <= rho2d
     rho = torch.minimum(rho3d, rho2d)
     depth = torch.where(use3d, r(QD) * ipz, r(TW2).expand_as(rho3d))
     g = torch.exp(-0.5 * rho)
-    return dict(px=px_, py=py_, pz_ok=pz_ok, ipz=ipz, rho3d=rho3d,
+    return dict(px=px_, py=py_, pz_ok=pz_ok, ipz=ipz, rho3d=rho3d, dx=dx, dy=dy,
                 use3d=use3d, depth=depth, g=g, alpha_raw=r(OPAC) * g)
 
 
@@ -207,8 +208,8 @@ def forward_tiles_plain(slab, tile_start, tile_count, bg, tiles_x: int,
     nrm = torch.zeros((nt, px_n, 3), device=dev)
     chan = torch.tensor(list(range(RGB, RGB + 3)) + list(range(EXTRA, EXTRA + n_extra)),
                         device=dev)
-    k = torch.arange(CHUNK, device=dev)
     max_count = int(tile_count.max()) if nt else 0
+    k = torch.arange(min(CHUNK, max_count), device=dev)  # shallow tiles: one short step
     for base in range(0, max_count, CHUNK):
         rank = base + k
         valid = rank[None, :] < tile_count[:, None]
