@@ -32,6 +32,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from vidu4d_tpu_torch.utils.profiler import span
+
 # the pair offsets besides 1 (`vidloader.py:179-195`)
 DELTAS = (2, 4, 8)
 
@@ -165,6 +167,7 @@ class VidDataset:
         d1 = self.read_raw(index + delta, -delta, self.sample_xy())
         return {k: np.stack([d0[k], d1[k]]) for k in d0}
 
+    @span("data.read")
     def read_raw(self, idx: int, delta: int,
                  rand_xy: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
         """Frame ``idx`` and its flow towards ``idx + delta``: every pixel in

@@ -83,7 +83,7 @@ from vidu4d_tpu_torch.ops.rasterize.tile_forward import check_tile
 from vidu4d_tpu_torch.parallel import sharding
 from vidu4d_tpu_torch.utils.camera_trajectories import construct_batch
 from vidu4d_tpu_torch.utils.logging import ScalarLogger, dump_opts_json
-from vidu4d_tpu_torch.utils.profiler import round_trace
+from vidu4d_tpu_torch.utils import profiler
 
 
 # the warps without an SE(3) form, which Stage 3 cannot drive surfels with:
@@ -345,11 +345,13 @@ class Stage3Trainer:
         self.surfels = state
         self.gs_adam = gs_adam_init(state.params)
 
+    @profiler.span("data.batch")
     def _next_batch(self) -> Dict[str, torch.Tensor]:
         batch = data_utils.flatten_pairs(self.batcher.next_batch())
         batch = data_utils.compute_frameid(batch, self.frame_info)
-        return {k: torch.as_tensor(np.asarray(v), device=self.device)
-                for k, v in batch.items()}
+        with profiler.span("data.copy"):
+            return {k: torch.as_tensor(np.asarray(v), device=self.device)
+                    for k, v in batch.items()}
 
     def _loss_config(self) -> Dict:
         """The loss options and their JAX defaults (`gs4d_trainer.py:304`)."""
@@ -415,15 +417,17 @@ class Stage3Trainer:
             flow_max = global_batch.amax(torch.amax(torch.abs(flow_alive)).detach())
             flow_scale = flow_max + 1e-6
             extra = flow_pw / flow_scale
-        prepared = prepare_surfels_batch(
-            sp, alive, xyz_cam, rot_cam, intrins, self.res, self.res,
-            self.opts.get("sh_degree", 3), d.background(), self.raster_cfg,
-            densify_dummy=dummy, extra_colors=extra,
-        )
+        with profiler.span("s3.raster_prep"):
+            prepared = prepare_surfels_batch(
+                sp, alive, xyz_cam, rot_cam, intrins, self.res, self.res,
+                self.opts.get("sh_degree", 3), d.background(), self.raster_cfg,
+                densify_dummy=dummy, extra_colors=extra,
+            )
         ctx = {"samples": samples, "xyz_cam": xyz_cam, "rot_cam": rot_cam,
                "intrins": intrins, "flow_scale": flow_scale}
         return prepared, ctx
 
+    @profiler.span("s3.forward")
     def loss(self, batch: Dict[str, torch.Tensor], dummy: torch.Tensor,
              use_2dgs_reg: bool = False):
         """The step's loss (`gs4d_trainer.py:378-617`). When data-parallel
@@ -439,7 +443,8 @@ class Stage3Trainer:
         mean, nz_mean = global_batch.mean, losses_mod.nonzero_mean
         prepared, ctx = self.render_inputs(batch, dummy)
         samples, xyz_cam, intrins = ctx["samples"], ctx["xyz_cam"], ctx["intrins"]
-        out = composite_batch(prepared, res, res)
+        with profiler.span("s3.composite"):
+            out = composite_batch(prepared, res, res)
         m = xyz_cam.shape[0]
         img = lambda x: x.reshape(m, res, res, -1)
         gt_rgb, gt_mask, vis2d = img(batch["rgb"]), img(batch["mask"]), img(batch["vis2d"])
@@ -541,6 +546,7 @@ class Stage3Trainer:
         warped = (xyz_cam.detach(), ctx["rot_cam"].detach(), intrins.detach())
         return total, loss_dict, out, warped
 
+    @profiler.span("s3.step")
     def train_step(self, batch: Optional[Dict[str, torch.Tensor]] = None,
                    use_2dgs_reg: Optional[bool] = None) -> Dict:
         """One training step (`gs4d_trainer.py:621-707`): updates the surfel
@@ -567,9 +573,10 @@ class Stage3Trainer:
                             device=self.device, requires_grad=True)
         with global_batch.over(share):
             total, loss_dict, _, warped = self.loss(batch, dummy, use_2dgs_reg)
-        total.backward()
+        with profiler.span("s3.backward"):
+            total.backward()
 
-        with torch.no_grad():
+        with torch.no_grad(), profiler.span("s3.stats"):
             sharding.all_reduce_grads_([*dparams, *sp], self.group)
             sgrads = sf.SurfelParams(*[
                 p.grad if p.grad is not None else torch.zeros_like(p) for p in sp])
@@ -610,9 +617,11 @@ class Stage3Trainer:
                 denom=surf.denom + denom_inc,
                 max_radii2d=torch.maximum(surf.max_radii2d, radii),
             )
-            self.gs_adam = gs_adam_update(sgrads, self.gs_adam, sp, self.gs_lrs)
-        if self.warp_opt is not None:
-            self.warp_opt.step()
+        with profiler.span("s3.optim"):
+            with torch.no_grad():
+                self.gs_adam = gs_adam_update(sgrads, self.gs_adam, sp, self.gs_lrs)
+            if self.warp_opt is not None:
+                self.warp_opt.step()
         self.current_steps += 1
         if share is not None:
             loss_dict = sharding.reduce_metrics(loss_dict, share)
@@ -638,6 +647,7 @@ class Stage3Trainer:
         gen = torch.Generator(device=self.device).manual_seed(m)
         return torch.randn(shape, generator=gen, device=self.device)
 
+    @profiler.span("s3.hooks")
     def _densify_hooks(self, span: int = 1) -> None:
         """Densify / opacity reset / outlier prune at the JAX cadence
         (`gs4d_trainer.py:830-875`). ``span`` is the number of steps just
@@ -652,22 +662,27 @@ class Stage3Trainer:
         if m is not None and o.get("densify_from_iter", 500) < m < until:
             # the screen- and world-size prune only after the first reset
             size_thr = 20.0 if m > reset_every else 0.0
-            self.surfels, self.gs_adam, info = densify_mod.densify_and_prune(
-                self.surfels, self.gs_adam, self._split_noise(m, (self.surfels.capacity, 2, 2)),
-                extent=o.get("cameras_extent", 1.0), max_screen_size=size_thr,
-                config=densify_mod.DensifyConfig(
-                    grad_threshold=o.get("densify_grad_threshold", 2e-4),
-                    min_opacity=0.005, percent_dense=o.get("percent_dense", 0.01)))
+            with profiler.span("s3.densify"):
+                self.surfels, self.gs_adam, info = densify_mod.densify_and_prune(
+                    self.surfels, self.gs_adam,
+                    self._split_noise(m, (self.surfels.capacity, 2, 2)),
+                    extent=o.get("cameras_extent", 1.0), max_screen_size=size_thr,
+                    config=densify_mod.DensifyConfig(
+                        grad_threshold=o.get("densify_grad_threshold", 2e-4),
+                        min_opacity=0.005, percent_dense=o.get("percent_dense", 0.01)))
             self.hook_log.append({"hook": "densify", "step": m, **info})
         m = cadence_due(it, span, reset_every)
         if m is not None and m < until:
-            self.surfels, self.gs_adam = densify_mod.reset_opacity(self.surfels, self.gs_adam)
+            with profiler.span("s3.reset_opacity"):
+                self.surfels, self.gs_adam = densify_mod.reset_opacity(self.surfels,
+                                                                       self.gs_adam)
             self.hook_log.append({"hook": "reset_opacity", "step": m})
         m = cadence_due(it, span, o.get("outlier_filtering_interval", 2000))
         if m is not None and m < o.get("outlier_stop_iter", 29000):
-            mask = densify_mod.radius_outlier_mask(self.surfels.params.xyz, self.surfels.alive,
-                                                   nb_points=20, radius=0.004)
-            self.surfels = densify_mod.prune_by_mask(self.surfels, mask)
+            with profiler.span("s3.outlier"):
+                mask = densify_mod.radius_outlier_mask(
+                    self.surfels.params.xyz, self.surfels.alive, nb_points=20, radius=0.004)
+                self.surfels = densify_mod.prune_by_mask(self.surfels, mask)
             self.hook_log.append({"hook": "outlier", "step": m,
                                   "pruned": torch.sum(mask.to(torch.int64))})
 
@@ -778,9 +793,9 @@ class Stage3Trainer:
                     logger.image(rnd, "eval/rendered", rendered["rendered"][0])
                     logger.image(rnd, "eval/mask", rendered["mask"][0])
                 first_hook = len(self.hook_log)
-                with round_trace(self.save_dir, rnd,
-                                 enabled=root and self.opts.get("profile", False),
-                                 device=self.device):
+                with profiler.round_trace(self.save_dir, rnd,
+                                          enabled=root and self.opts.get("profile", False),
+                                          device=self.device):
                     metrics = self.train_one_round(log_fn=log_fn)
                 self.current_round = rnd + 1
                 if self.current_round % save_freq == 0 or self.current_round == num_rounds:

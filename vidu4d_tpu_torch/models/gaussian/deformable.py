@@ -33,6 +33,7 @@ from vidu4d_tpu_torch.ops.rasterize import RasterizeConfig
 from vidu4d_tpu_torch.ops.rasterize.common import project_splats
 from vidu4d_tpu_torch.ops.rasterize.compositing import CompositeOutput
 from vidu4d_tpu_torch.ops.rasterize.tile_backward import composite_batch, prepare_batch
+from vidu4d_tpu_torch.utils.profiler import span
 
 
 class GaussianDeformer(nn.Module):
@@ -97,6 +98,7 @@ class GaussianDeformer(nn.Module):
             samples["rest_articulation"] = rest_art
         return samples
 
+    @span("warp")
     def warp_surfels(self, xyz: torch.Tensor, rotation: torch.Tensor,
                      samples: Dict, no_warp: bool = False):
         """Canonical surfels (P, 3), (P, 4) -> camera space at each batch
@@ -129,6 +131,7 @@ class GaussianDeformer(nn.Module):
         (q_b, t_b), aux = self._warp_qt(xyz_obj, samples, backward=True)
         return quaternion_translation_apply(q_b, t_b, xyz_obj), aux
 
+    @span("warp")
     def cycle_loss(self, xyz_cam_t: torch.Tensor, xyz_canonical: torch.Tensor,
                    samples: Dict) -> Dict:
         """Backward-warp the warped surfels (M, N, 3) and take the L2
@@ -138,6 +141,7 @@ class GaussianDeformer(nn.Module):
         cyc_dist = safe_norm(xyz_cycled - xyz_canonical[None], dim=-1, keepdim=True)
         return {"cyc_dist": cyc_dist, "xyz_cycled": xyz_cycled, **aux}
 
+    @span("warp")
     def flow_surfels(self, xyz_cam_t: torch.Tensor, samples: Dict,
                      xyz_cano: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Point-wise flow (M, P, 2): project the surfels at their frame and,
