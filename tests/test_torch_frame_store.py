@@ -1,0 +1,143 @@
+"""The device-resident whole-image frame store (`data.frame_store`) against
+the memory-map path it replaces in Stage 3: every (frame, delta) the loader
+can draw reads the same keys, dtypes, shapes and values (exactly); a
+stream of batches draws the same pairs and leaves the rng where the map
+path leaves it; and the trainers take the store exactly when their items
+are whole images (`vidloader.COUNTS`)."""
+
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from tests.helpers import make_fake_db
+from vidu4d_tpu_torch.data import data_utils, vidloader
+from vidu4d_tpu_torch.data.frame_store import FrameStore, store_bytes
+
+RES = 16
+
+
+def _datasets(db, seed, pixels_per_image=-1):
+    opts = {"dataroot": db, "seqname": "toy", "data_prefix": "crop", "train_res": RES,
+            "pixels_per_image": pixels_per_image}
+    return data_utils.build_datasets(opts, rng=np.random.default_rng(seed + 1))
+
+
+def _drawable(ds):
+    """Every (first frame, delta) `VidDataset.sample_delta` can draw."""
+    return [(t, d) for t in range(len(ds)) for d in [1] + [
+        d for d in vidloader.DELTAS
+        if t % d == 0 and t + d < ds.num_frames and d in ds.flow["fw"]]]
+
+
+def _assert_same(got, want):
+    """A store batch (torch) equals a map-path batch (numpy): keys in order,
+    dtypes, shapes, values."""
+    assert list(got) == list(want)
+    for k, v in want.items():
+        w = torch.from_numpy(np.asarray(v))
+        assert got[k].dtype == w.dtype and got[k].shape == w.shape, k
+        assert torch.equal(got[k], w), k
+
+
+@pytest.mark.parametrize("num_vids,seed,missing", [
+    (1, 0, None), (2, 5, None), (2, 1, "FlowFW_1"), (1, 2, "FlowBW_2"),
+    (2, 3, "Features")])
+def test_store_reads_every_drawable_pair_as_read_raw(tmp_path, num_vids, seed, missing):
+    """For every (frame, delta) the loader can draw, the store's pair is
+    `read_raw`'s (a missing flow table reads zeros, a missing feature file
+    the zeros map), with `compute_frameid`'s global ids."""
+    db = make_fake_db(tmp_path, num_vids=num_vids, T=10, H=RES, W=RES, seed=seed)
+    if missing:
+        sub = "Features" if missing == "Features" else missing
+        shutil.rmtree(os.path.join(db, "processed", sub, "Full-Resolution", "toy-0000"))
+    datasets = _datasets(db, seed)
+    info = data_utils.get_data_info(datasets)
+    store = FrameStore.build(datasets, info["frame_info"].frame_offset_raw, "cpu")
+    assert store is not None
+    assert store.nbytes == sum(store_bytes(ds) for ds in datasets) > 0
+    for vid, ds in enumerate(datasets):
+        pairs = _drawable(ds)
+        assert any(d > 1 for _, d in pairs)
+        got = store.batch([(vid, t, d, None, None) for t, d in pairs])
+        frames = [f for t, d in pairs for f in (ds.read_raw(t, d), ds.read_raw(t + d, -d))]
+        want = {k: np.stack([f[k] for f in frames]) for k in frames[0]}
+        want = data_utils.compute_frameid(want, info["frame_info"])
+        _assert_same(got, want)
+    if missing == "Features":
+        assert not torch.any(store.videos[0].feature)
+    elif missing:
+        way = "fw" if missing.startswith("FlowFW") else "bw"
+        assert int(missing[-1]) not in store.videos[0].flow[way]
+
+
+@pytest.mark.parametrize("num_vids,seed,imgs", [(1, 0, 1), (2, 4, 3), (2, 9, 2)])
+def test_store_batches_and_rng_stream_match_the_map_path(tmp_path, num_vids, seed, imgs):
+    """Over several batches the store path (`PairBatcher.draw` + the
+    store) gives `compute_frameid(flatten_pairs(next_batch()))`, as fresh
+    tensors, and both paths leave both rngs in the same state."""
+    db = make_fake_db(tmp_path, num_vids=num_vids, T=10, H=RES, W=RES, seed=seed)
+    maps, stored = _datasets(db, seed), _datasets(db, seed)
+    info = data_utils.get_data_info(maps)
+    store = FrameStore.build(stored, info["frame_info"].frame_offset_raw, "cpu")
+    ref = data_utils.PairBatcher(maps, imgs, seed=seed, num_hosts=1, host_id=0)
+    got = data_utils.PairBatcher(stored, imgs, seed=seed, num_hosts=1, host_id=0)
+    for _ in range(6):
+        want = data_utils.compute_frameid(data_utils.flatten_pairs(ref.next_batch()),
+                                          info["frame_info"])
+        batch = store.batch(got.draw())
+        _assert_same(batch, want)
+        for v in batch.values():  # nothing of the store is handed out
+            assert not any(v.data_ptr() == t.data_ptr()
+                           for video in store.videos for t in video.tensors())
+    assert np.array_equal(ref.rng.integers(0, 2 ** 31, 8), got.rng.integers(0, 2 ** 31, 8))
+    assert np.array_equal(maps[0].rng.random(8), stored[0].rng.random(8))
+
+
+def test_store_is_for_whole_images_that_fit(tmp_path, monkeypatch):
+    """Sampled-pixel items, or a store above its share of the free memory,
+    keep the memory-map path."""
+    from vidu4d_tpu_torch.data import frame_store
+
+    db = make_fake_db(tmp_path, num_vids=1, T=8, H=RES, W=RES)
+    offsets = (0, 8)
+    assert FrameStore.build(_datasets(db, 0, pixels_per_image=4), offsets, "cpu") is None
+    datasets = _datasets(db, 0)
+    need = store_bytes(datasets[0])
+    monkeypatch.setattr(frame_store, "free_bytes", lambda device: 4 * need - 4)
+    assert FrameStore.build(datasets, offsets, "cpu") is None
+    monkeypatch.setattr(frame_store, "free_bytes", lambda device: 4 * need)
+    assert FrameStore.build(datasets, offsets, "cpu") is not None
+
+
+def test_trainers_count_frames_from_the_store_and_the_maps(tmp_path):
+    """A Stage-3 trainer (whole images) serves each step's pair from the
+    store and none from the maps; a Stage-2 trainer (sampled pixels) reads
+    every frame from the maps."""
+    from vidu4d_tpu_torch.engine.gs4d_trainer import Stage3Trainer
+    from vidu4d_tpu_torch.engine.trainer import Stage2Trainer
+
+    db = make_fake_db(tmp_path, num_vids=1, T=8, H=RES, W=RES)
+    base = {"dataroot": db, "seqname": "toy", "logroot": os.path.join(str(tmp_path), "logdir"),
+            "data_prefix": "crop", "train_res": RES}
+    s3 = Stage3Trainer({**base, "logname": "s3", "pixels_per_image": -1, "imgs_per_gpu": 1,
+                        "fg_motion": "gs-bob", "gs_capacity": 128, "gs_init_samples": 96},
+                       "cpu")
+    assert s3.frame_store is not None
+    vidloader.reset_counts()
+    steps = 2
+    for _ in range(steps):
+        m = s3.train_step()
+        assert all(np.isfinite(float(v)) for v in m.values())
+    assert vidloader.COUNTS == {"store": 2 * steps, "maps": 0}
+
+    s2 = Stage2Trainer({**base, "logname": "s2", "pixels_per_image": 4, "imgs_per_gpu": 2,
+                        "fg_motion": "bob", "field_depth": 2, "field_width": 32,
+                        "train_depth_samples": 8, "num_rounds": 2, "iters_per_round": 2},
+                       "cpu")
+    vidloader.reset_counts()
+    for _ in range(steps):
+        s2._next_batch()
+    assert vidloader.COUNTS == {"store": 0, "maps": 2 * 2 * steps}

@@ -8,7 +8,7 @@ Sequence config ini -> per-video VidDatasets -> dataset metadata
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -142,9 +142,24 @@ class PairBatcher:
         self.rng = np.random.default_rng(seed + (host_id if host_id is not None
                                                  else node_index()))
 
-    def next_batch(self) -> Dict[str, np.ndarray]:
+    def draw(self) -> List[Tuple[int, int, int, Optional[np.ndarray], Optional[np.ndarray]]]:
+        """The next batch's rng draws, each item's as `VidDataset.__getitem__`
+        makes them: (video, first frame, delta, the first frame's pixels,
+        the second's), the pixels None for whole images."""
         picks = self.rng.integers(0, len(self.index), size=self.imgs_per_batch)
-        items = [self.datasets[self.index[p][0]][self.index[p][1]] for p in picks]
+        out = []
+        for p in picks:
+            vid, t = self.index[p]
+            ds = self.datasets[vid]
+            out.append((vid, t, ds.sample_delta(t), ds.sample_xy(), ds.sample_xy()))
+        return out
+
+    def next_batch(self) -> Dict[str, np.ndarray]:
+        items = []
+        for vid, t, delta, xy0, xy1 in self.draw():
+            ds = self.datasets[vid]
+            d0, d1 = ds.read_raw(t, delta, xy0), ds.read_raw(t + delta, -delta, xy1)
+            items.append({k: np.stack([d0[k], d1[k]]) for k in d0})
         return {k: np.stack([it[k] for it in items]) for k in items[0]}
 
 

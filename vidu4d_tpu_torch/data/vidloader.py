@@ -21,14 +21,15 @@ drawn without replacement (`RangeSampler`, Stage 2), gathered from the
 memory maps (by the native gather of `data.native` where it builds, unless
 ``VIDU4D_NATIVE_SAMPLER=0``; else by numpy, with the same values). The rng
 draws are the JAX package's, so the same seed gives the same pairs and
-pixels.
+pixels. `PairBatcher.draw` makes a batch's draws apart from its reads, so
+`data.frame_store` serves whole images for the same draws.
 """
 
 from __future__ import annotations
 
 import configparser
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -36,6 +37,15 @@ from vidu4d_tpu_torch.utils.profiler import span
 
 # the pair offsets besides 1 (`vidloader.py:179-195`)
 DELTAS = (2, 4, 8)
+
+# frames served to batches: "maps" read by `VidDataset.read_raw` from the
+# memory maps, "store" by `data.frame_store` from device memory
+COUNTS = {"maps": 0, "store": 0}
+
+
+def reset_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
 
 
 def bilinear_interp(feat: np.ndarray, xy: np.ndarray) -> np.ndarray:
@@ -167,6 +177,18 @@ class VidDataset:
         d1 = self.read_raw(index + delta, -delta, self.sample_xy())
         return {k: np.stack([d0[k], d1[k]]) for k in d0}
 
+    def whole_hxy(self) -> np.ndarray:
+        """(H * W, 3) integer (x, y, 1) of every pixel in raster order."""
+        x0, y0 = np.meshgrid(range(self.img_size[1]), range(self.img_size[0]))
+        return np.stack([x0, y0, np.ones_like(x0)], -1).reshape(-1, 3)
+
+    def sample_feature(self, idx: int, hxy: np.ndarray) -> np.ndarray:
+        """Frame ``idx``'s feature map bilinearly sampled (in float64) at
+        the pixels ``hxy``, as float32."""
+        feat = np.asarray(self.mmap["feature"][idx], np.float32)
+        return bilinear_interp(feat, hxy[:, :2] / self.img_size[0] * feat.shape[0]
+                               ).astype(np.float32)
+
     @span("data.read")
     def read_raw(self, idx: int, delta: int,
                  rand_xy: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
@@ -174,16 +196,15 @@ class VidDataset:
         raster order, or the pixels ``rand_xy`` (N, 2) gathered straight from
         the memory maps (`vidloader.py:159`), by the native gather where it
         is on (`vidloader.py:212-260`), else by numpy: the same values."""
-        feat = np.asarray(self.mmap["feature"][idx], np.float32)
+        COUNTS["maps"] += 1
         if rand_xy is None:
-            x0, y0 = np.meshgrid(range(self.img_size[1]), range(self.img_size[0]))
-            hxy = np.stack([x0, y0, np.ones_like(x0)], -1).reshape(-1, 3)
+            hxy = self.whole_hxy()
             sel = lambda a: np.asarray(a, np.float32).reshape((-1,) + a.shape[2:])
         else:
             hxy = np.concatenate([rand_xy, np.ones_like(rand_xy[:, :1])], -1)
             sel = self._native_gather(rand_xy) or (
                 lambda a: np.asarray(a[rand_xy[:, 1], rand_xy[:, 0]], np.float32))
-        feat_sel = bilinear_interp(feat, hxy[:, :2] / self.img_size[0] * feat.shape[0])
+        feat_sel = self.sample_feature(idx, hxy)
         flow = sel(self._read_flow(idx, delta))
         rgb = sel(self.mmap["rgb"][idx])
         if rgb.ndim == 1:
@@ -196,7 +217,7 @@ class VidDataset:
             "depth": sel(self.mmap["depth"][idx])[..., None],
             "flow": flow[..., :2],
             "flow_uct": flow[..., 2:3],
-            "feature": feat_sel.astype(np.float32),
+            "feature": feat_sel,
             "crop2raw": self.crop2raw[idx],
             "is_detected": np.float32(self.is_detected[idx]),
             "dataid": np.int32(self.dataid),
@@ -227,14 +248,20 @@ class VidDataset:
 
         return gather
 
-    def _read_flow(self, idx: int, delta: int) -> np.ndarray:
-        """The (H, W, 3) flow map (a memory-map view) towards idx + delta."""
-        is_fw = delta > 0
+    @staticmethod
+    def flow_row(idx: int, delta: int) -> Tuple[str, int, int]:
+        """The flow table (``"fw"`` or ``"bw"``, |delta|) and its row that
+        hold frame ``idx``'s flow towards ``idx + delta``."""
         d = abs(delta)
-        table = self.flow["fw" if is_fw else "bw"]
-        if d not in table:
+        return ("fw", d, idx // d) if delta > 0 else ("bw", d, idx // d - 1)
+
+    def _read_flow(self, idx: int, delta: int) -> np.ndarray:
+        """The (H, W, 3) flow map (a memory-map view) towards idx + delta;
+        zeros where the database has no such table."""
+        way, d, row = self.flow_row(idx, delta)
+        if d not in self.flow[way]:
             return np.zeros(self.img_size + (3,), np.float32)
-        return table[d][idx // d] if is_fw else table[d][idx // d - 1]
+        return self.flow[way][d][row]
 
 
 def load_sequence_config(config_path: str):

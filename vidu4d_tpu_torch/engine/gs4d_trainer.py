@@ -41,6 +41,7 @@ state is rank 0's; checkpoints, logs and eval renders are rank 0's only.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 import pickle
@@ -52,6 +53,7 @@ import torch
 
 from vidu4d_tpu_torch import convert
 from vidu4d_tpu_torch.data import data_utils
+from vidu4d_tpu_torch.data.frame_store import FrameStore
 from vidu4d_tpu_torch.engine import losses as losses_mod
 from vidu4d_tpu_torch.engine.optim import WarpAdamW
 from vidu4d_tpu_torch.engine.schedules import progress_schedule
@@ -345,8 +347,18 @@ class Stage3Trainer:
         self.surfels = state
         self.gs_adam = gs_adam_init(state.params)
 
+    @functools.cached_property
+    def frame_store(self) -> Optional[FrameStore]:
+        """With whole images, every frame read once into the device's
+        memory (at the first batch: a trainer that only renders or exports
+        never builds it), each batch then gathered there; None: the
+        memory-map path."""
+        return FrameStore.build(self.datasets, self.frame_info.frame_offset_raw, self.device)
+
     @profiler.span("data.batch")
     def _next_batch(self) -> Dict[str, torch.Tensor]:
+        if self.frame_store is not None:
+            return self.frame_store.batch(self.batcher.draw())
         batch = data_utils.flatten_pairs(self.batcher.next_batch())
         batch = data_utils.compute_frameid(batch, self.frame_info)
         with profiler.span("data.copy"):
