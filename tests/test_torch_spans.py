@@ -161,3 +161,72 @@ def state(tr):
         else:
             todo.extend(x)
     return out
+
+
+# --- Stage 2 -------------------------------------------------------------------
+
+from vidu4d_tpu_torch.engine.trainer import Stage2Trainer  # noqa: E402
+
+S2_TREE = {"s2.step": None, "data.batch": "s2.step", "data.read": "data.batch",
+           "data.copy": "data.batch", "s2.forward": "s2.step", "warp": "s2.forward",
+           "s2.field": "s2.forward", "s2.render": "s2.forward", "s2.reg": "s2.forward",
+           "s2.backward": "s2.step", "s2.optim": "s2.step"}
+S2_PAIRS, S2_PIXELS = 2, 4
+
+
+def s2_trainer(db, tmp_path):
+    torch.manual_seed(0)
+    opts = {"dataroot": db, "seqname": "toy", "logname": "spans2",
+            "logroot": os.path.join(str(tmp_path), "logdir"), "data_prefix": "crop",
+            "train_res": RES, "pixels_per_image": S2_PIXELS, "imgs_per_gpu": S2_PAIRS,
+            "fg_motion": "bob", "rgb_timefree": True, "rgb_dirfree": True,
+            "num_rounds": 2, "iters_per_round": 2}
+    tr = Stage2Trainer(opts, "cpu")
+    tr.current_steps = 2000
+    return tr
+
+
+@pytest.fixture(scope="module")
+def s2_profiled(db, tmp_path_factory):
+    """(traced spans, collector records) of one Stage-2 `train_step`."""
+    tr = s2_trainer(db, tmp_path_factory.mktemp("s2profiled"))
+    with profiler.collect() as records, torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        tr.train_step()
+    traced = [(e.name()[len(profiler.PREFIX):], e.start_thread_id(), e.start_ns(), e.end_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.name().startswith(profiler.PREFIX) and e.device_type() == DeviceType.CPU]
+    return sorted(traced, key=lambda r: r[2]), sorted(records, key=lambda r: r[2])
+
+
+@pytest.mark.parametrize("source", ["profiler", "collector"])
+def test_stage2_span_tree(s2_profiled, source):
+    """One step: the batch read (a read per frame), the forward with its four
+    warps (the samples' backward warp, the flow's and the reprojection's
+    forward warps, the cycle), two field blocks, two renders (the composite
+    and the field's own), two regulariser blocks (the eikonal, the sampled
+    regularisers), the backward and AdamW."""
+    traced, records = s2_profiled
+    tree = (traced_tree(traced) if source == "profiler"
+            else [(name, parent) for name, parent, _, _ in records])
+    assert {name for name, _ in tree} == set(S2_TREE)
+    assert all(parent == S2_TREE[name] for name, parent in tree), tree
+    count = lambda n: sum(1 for name, _ in tree if name == n)
+    assert count("s2.step") == count("s2.forward") == count("s2.optim") == 1
+    assert count("data.read") == 2 * S2_PAIRS and count("warp") == 4
+    assert count("s2.field") == count("s2.render") == count("s2.reg") == 2
+
+
+def test_stage2_outputs_bitwise_with_tracing_on_and_off(db, tmp_path):
+    off, on = s2_trainer(db, tmp_path), s2_trainer(db, tmp_path)
+    out_off = off.train_step()
+    with profiler.collect(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        out_on = on.train_step()
+    assert out_off.keys() == out_on.keys()
+    assert all(torch.equal(out_off[k], out_on[k]) for k in out_off), out_off
+    for a, b in zip([*off.model.state_dict().values(), *off.optimizer.mu.values(),
+                     *off.optimizer.nu.values()],
+                    [*on.model.state_dict().values(), *on.optimizer.mu.values(),
+                     *on.optimizer.nu.values()]):
+        assert torch.equal(a, b)

@@ -33,6 +33,7 @@ from vidu4d_tpu_torch.ops import geometry as geom
 from vidu4d_tpu_torch.ops import global_batch
 from vidu4d_tpu_torch.ops.quaternion import quaternion_translation_to_se3
 from vidu4d_tpu_torch.ops.volume import render_pixel
+from vidu4d_tpu_torch.utils.profiler import span
 
 # points of the sampled regularisers (`model.py:169-201`)
 N_VIS, N_GAUSS, N_SOFT = 512, 2048, 1024
@@ -144,6 +145,7 @@ class DvrModel(nn.Module):
                                               generator=generator, device=dev)
         return draws
 
+    @span("s2.reg")
     def reg_losses(self, states: Dict[str, FieldState], draws: Dict[str, torch.Tensor],
                    alpha=None) -> Dict[str, torch.Tensor]:
         """Visibility decay (every field), gauss-skin consistency (a
@@ -194,6 +196,7 @@ class DvrModel(nn.Module):
             out["reg_cam_prior"] = sum(cam_losses) / len(cam_losses)
         return out
 
+    @span("s2.forward")
     def loss(self, batch: Dict, states: Dict[str, FieldState], config: Dict,
              weights: Dict, draws: Dict[str, torch.Tensor], train: bool = True):
         """Forward + loss assembly (`model.py:226`). batch: the flattened

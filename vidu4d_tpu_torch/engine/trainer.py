@@ -64,7 +64,7 @@ from vidu4d_tpu_torch.ops.numerics import safe_norm, safe_normalize
 from vidu4d_tpu_torch.ops.quaternion import quaternion_translation_to_se3
 from vidu4d_tpu_torch.parallel import sharding
 from vidu4d_tpu_torch.utils.logging import ScalarLogger, dump_opts_json
-from vidu4d_tpu_torch.utils.profiler import round_trace
+from vidu4d_tpu_torch.utils.profiler import round_trace, span
 
 # the loss options and their JAX defaults (`trainer.py:152-172`)
 LOSS_DEFAULTS = {
@@ -181,10 +181,13 @@ class Stage2Trainer:
 
     # ------------------------------------------------------------------
 
+    @span("data.batch")
     def _next_batch(self) -> Dict[str, torch.Tensor]:
         batch = data_utils.flatten_pairs(self.batcher.next_batch())
         batch = data_utils.compute_frameid(batch, self.frame_info)
-        return {k: torch.as_tensor(np.asarray(v), device=self.device) for k, v in batch.items()}
+        with span("data.copy"):
+            return {k: torch.as_tensor(np.asarray(v), device=self.device)
+                    for k, v in batch.items()}
 
     def _loss_config(self) -> Dict:
         return {k: self.opts.get(k, v) for k, v in LOSS_DEFAULTS.items()}
@@ -374,6 +377,7 @@ class Stage2Trainer:
     # the step and the round loop (`trainer.py:318-488`)
     # ------------------------------------------------------------------
 
+    @span("s2.step")
     def train_step(self, batch: Optional[Dict[str, torch.Tensor]] = None,
                    draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         """One step: loss, backward, the optimiser's update. ``batch``
@@ -398,11 +402,13 @@ class Stage2Trainer:
         with global_batch.over(share):
             loss_dict, _ = self.model.loss(batch, self.states, cfg, weights, draws)
         total = sum(loss_dict.values())
-        total.backward()
-        sharding.all_reduce_grads_(list(self.model.parameters()), self.group)
-        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
-        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        self.optimizer.step()
+        with span("s2.backward"):
+            total.backward()
+            sharding.all_reduce_grads_(list(self.model.parameters()), self.group)
+        with span("s2.optim"):
+            grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+            gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            self.optimizer.step()
         if share is not None:
             loss_dict = sharding.reduce_metrics(loss_dict, share)
             total = sum(loss_dict.values())

@@ -40,6 +40,7 @@ from vidu4d_tpu_torch.ops.quaternion import (
 )
 from vidu4d_tpu_torch.ops import global_batch
 from vidu4d_tpu_torch.ops.volume import compute_weights, sample_cam_rays, sample_pdf
+from vidu4d_tpu_torch.utils.profiler import span
 
 
 class FieldState(NamedTuple):
@@ -187,6 +188,7 @@ class DynNeRF(nn.Module):
         return quaternion_translation_apply(field2cam[0][:, None, None],
                                             field2cam[1][:, None, None], xyz)
 
+    @span("warp")
     def backward_warp(self, xyz_cam, dir_cam, field2cam, frame_id, inst_id,
                       samples_dict=None) -> Dict:
         xyz_t, direction = self.cam_to_field(xyz_cam, dir_cam, field2cam)
@@ -194,6 +196,7 @@ class DynNeRF(nn.Module):
                              backward=True)
         return {"xyz": xyz, "dir": direction, "xyz_t": xyz_t, **aux}
 
+    @span("warp")
     def forward_warp(self, xyz, field2cam, frame_id, inst_id, samples_dict=None):
         xyz_next, _ = self.warp(xyz, frame_id, inst_id, samples_dict=samples_dict)
         return self.field_to_cam(xyz_next, field2cam)
@@ -250,9 +253,10 @@ class DynNeRF(nn.Module):
             backwarp = self.backward_warp(xyz_cam, dir_cam, field2cam, frame_id, inst_id,
                                           samples_dict=samples)
         xyz, xyz_t = backwarp["xyz"], backwarp["xyz_t"]
-        vis_score = self.visibility(xyz, inst_id)
-        rgb, density = self.query(xyz, direction=backwarp["dir"], frame_id=frame_id,
-                                  inst_id=inst_id, alpha=alpha)
+        with span("s2.field"):
+            vis_score = self.visibility(xyz, inst_id)
+            rgb, density = self.query(xyz, direction=backwarp["dir"], frame_id=frame_id,
+                                      inst_id=inst_id, alpha=alpha)
         if not train:
             inside = geom.check_inside_aabb(xyz, geom.extend_aabb(state.aabb))
             density = torch.where(inside[..., None], density, torch.zeros_like(density))
@@ -262,7 +266,8 @@ class DynNeRF(nn.Module):
         if train:
             feat_dict["flow"] = self._compute_flow(hxy, xyz, frame_id, inst_id, field2cam,
                                                    Kinv, samples, flow_thresh=flow_thresh)
-            xyz_cycled, cyc_aux = self.warp(xyz, frame_id, inst_id, samples_dict=samples)
+            with span("warp"):
+                xyz_cycled, cyc_aux = self.warp(xyz, frame_id, inst_id, samples_dict=samples)
             feat_dict["cyc_dist"] = safe_norm(xyz_cycled - xyz_t, dim=-1, keepdim=True)
             for k in ("skin_entropy", "delta_skin"):
                 if k in cyc_aux and k in backwarp:
@@ -270,7 +275,8 @@ class DynNeRF(nn.Module):
                 elif k in cyc_aux:
                     feat_dict[k] = cyc_aux[k]
             feat_dict["eikonal"] = self._eikonal(xyz, inst_id, alpha=alpha)
-            feature = self.features(xyz)
+            with span("s2.field"):
+                feature = self.features(xyz)
             feat_dict["feature"] = feature
             if "feature" in samples:
                 xyz_matches = self.global_match(samples["feature"], feature, xyz)
@@ -307,6 +313,7 @@ class DynNeRF(nn.Module):
         depth_all = torch.sort(torch.cat([depth, depth_new], dim=-2), dim=-2).values
         return sample_cam_rays(hxy, Kinv, near_far, depth=depth_all)
 
+    @span("s2.reg")
     def _eikonal(self, xyz, inst_id, alpha=None, sample_ratio: int = 16):
         """(|grad sdf| - 1)^2 at every ``sample_ratio``-th ray, in canonical
         space, zero elsewhere (`dyn_nerf.py:414`). The gradient is taken at

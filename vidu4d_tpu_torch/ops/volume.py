@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from vidu4d_tpu_torch.ops import global_batch
 from vidu4d_tpu_torch.ops.geometry import linspace01
 from vidu4d_tpu_torch.ops.numerics import safe_norm, safe_normalize
+from vidu4d_tpu_torch.utils.profiler import span
 
 # outputs that are never integrated along the ray (`volume.py:19`)
 KEY_SKIP = ("density", "vis", "flow", "eikonal", "xy_reproj", "xyz_reproj",
@@ -87,6 +88,7 @@ def integrate(field_dict: Dict[str, torch.Tensor], weights: torch.Tensor) -> Dic
     return rendered
 
 
+@span("s2.render")
 def render_pixel(field_dict: Dict[str, torch.Tensor], deltas: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Per-pixel rendering with the visibility, eikonal, delta-skin and
     gauss-mask outputs (`volume.py:121`). "vis" is the visibility BCE
