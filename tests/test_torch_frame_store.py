@@ -1,9 +1,9 @@
-"""The device-resident whole-image frame store (`data.frame_store`) against
-the memory-map path it replaces in Stage 3: every (frame, delta) the loader
-can draw reads the same keys, dtypes, shapes and values (exactly); a
-stream of batches draws the same pairs and leaves the rng where the map
-path leaves it; and the trainers take the store exactly when their items
-are whole images (`vidloader.COUNTS`)."""
+"""The device-resident frame store (`data.frame_store`) against the
+memory-map path it replaces, for Stage 3's whole images and Stage 2's
+sampled pixels: every (frame, delta) the loader can draw reads the same
+keys, dtypes, shapes and values (exactly); a stream of batches draws the
+same pairs and pixels and leaves the rngs where the map path leaves them;
+and both trainers take the store whenever it fits (`vidloader.COUNTS`)."""
 
 import os
 import shutil
@@ -96,32 +96,90 @@ def test_store_batches_and_rng_stream_match_the_map_path(tmp_path, num_vids, see
     assert np.array_equal(maps[0].rng.random(8), stored[0].rng.random(8))
 
 
+def _assert_fresh(batch, store):
+    """No tensor of ``batch`` shares memory with the store."""
+    held = {t.untyped_storage().data_ptr() for video in store.videos for t in video.tensors()}
+    assert not any(v.untyped_storage().data_ptr() in held for v in batch.values())
+
+
+@pytest.mark.parametrize("num_vids,seed,imgs,pixels,missing", [
+    (1, 0, 3, 4, None), (2, 4, 5, 7, None), (2, 1, 4, 16, "FlowFW_1"),
+    (1, 2, 3, 1, "FlowBW_2"), (2, 3, 6, 5, "Features")])
+def test_sampled_store_batches_and_rng_stream_match_the_map_path(
+        tmp_path, num_vids, seed, imgs, pixels, missing):
+    """Sampled pixels: over several batches the store path
+    (`PairBatcher.draw` + `FrameStore.sampled_batch`) gives
+    `compute_frameid(flatten_pairs(next_batch()))` exactly, items in draw
+    order across videos, a missing flow table as zeros and a missing
+    feature file as the zeros map, as fresh tensors; both paths leave both
+    rngs in the same state."""
+    db = make_fake_db(tmp_path, num_vids=num_vids, T=10, H=RES, W=RES, seed=seed)
+    if missing:
+        shutil.rmtree(os.path.join(db, "processed", missing, "Full-Resolution", "toy-0000"))
+    maps, stored = _datasets(db, seed, pixels), _datasets(db, seed, pixels)
+    info = data_utils.get_data_info(maps)
+    store = FrameStore.build(stored, info["frame_info"].frame_offset_raw, "cpu")
+    assert store.nbytes == sum(store_bytes(ds) for ds in stored)
+    ref = data_utils.PairBatcher(maps, imgs, seed=seed, num_hosts=1, host_id=0)
+    got = data_utils.PairBatcher(stored, imgs, seed=seed, num_hosts=1, host_id=0)
+    vidloader.reset_counts()
+    vids = set()
+    for _ in range(6):
+        want = data_utils.compute_frameid(data_utils.flatten_pairs(ref.next_batch()),
+                                          info["frame_info"])
+        draws = got.draw()
+        vids |= {vid for vid, *_ in draws}
+        batch = store.sampled_batch(draws)
+        _assert_same(batch, want)
+        assert all(v.is_contiguous() for v in batch.values())
+        _assert_fresh(batch, store)
+    assert vids == set(range(num_vids))
+    assert vidloader.COUNTS == {"maps": 6 * 2 * imgs, "store": 6 * 2 * imgs}
+    assert np.array_equal(ref.rng.integers(0, 2 ** 31, 8), got.rng.integers(0, 2 ** 31, 8))
+    assert np.array_equal(maps[0].rng.random(8), stored[0].rng.random(8))
+
+
 def test_store_is_for_whole_images_that_fit(tmp_path, monkeypatch):
-    """Sampled-pixel items, or a store above its share of the free memory,
-    keep the memory-map path."""
+    """Whole images and sampled pixels both build a store where it fits in
+    its share of the free memory; above it, both keep the memory-map
+    path."""
     from vidu4d_tpu_torch.data import frame_store
 
     db = make_fake_db(tmp_path, num_vids=1, T=8, H=RES, W=RES)
     offsets = (0, 8)
-    assert FrameStore.build(_datasets(db, 0, pixels_per_image=4), offsets, "cpu") is None
-    datasets = _datasets(db, 0)
-    need = store_bytes(datasets[0])
-    monkeypatch.setattr(frame_store, "free_bytes", lambda device: 4 * need - 4)
-    assert FrameStore.build(datasets, offsets, "cpu") is None
-    monkeypatch.setattr(frame_store, "free_bytes", lambda device: 4 * need)
-    assert FrameStore.build(datasets, offsets, "cpu") is not None
+    for pixels in (-1, 4):
+        datasets = _datasets(db, 0, pixels)
+        need = store_bytes(datasets[0])
+        monkeypatch.setattr(frame_store, "free_bytes", lambda device: 4 * need - 4)
+        assert FrameStore.build(datasets, offsets, "cpu") is None
+        monkeypatch.setattr(frame_store, "free_bytes", lambda device: 4 * need)
+        assert FrameStore.build(datasets, offsets, "cpu").nbytes == need
 
 
-def test_trainers_count_frames_from_the_store_and_the_maps(tmp_path):
-    """A Stage-3 trainer (whole images) serves each step's pair from the
-    store and none from the maps; a Stage-2 trainer (sampled pixels) reads
-    every frame from the maps."""
-    from vidu4d_tpu_torch.engine.gs4d_trainer import Stage3Trainer
+def _s2_trainer(base, logname):
     from vidu4d_tpu_torch.engine.trainer import Stage2Trainer
 
-    db = make_fake_db(tmp_path, num_vids=1, T=8, H=RES, W=RES)
-    base = {"dataroot": db, "seqname": "toy", "logroot": os.path.join(str(tmp_path), "logdir"),
+    return Stage2Trainer({**base, "logname": logname, "pixels_per_image": 4, "imgs_per_gpu": 2,
+                          "fg_motion": "bob", "field_depth": 2, "field_width": 32,
+                          "train_depth_samples": 8, "num_rounds": 2, "iters_per_round": 2},
+                         "cpu")
+
+
+def _base(tmp_path, db):
+    return {"dataroot": db, "seqname": "toy", "logroot": os.path.join(str(tmp_path), "logdir"),
             "data_prefix": "crop", "train_res": RES}
+
+
+def test_trainers_count_frames_from_the_store_and_the_maps(tmp_path, monkeypatch):
+    """A Stage-3 trainer (whole images) serves each step's pair from the
+    store and none from the maps; so does a Stage-2 trainer (sampled
+    pixels); a Stage-2 trainer whose store does not fit reads every frame
+    from the maps."""
+    from vidu4d_tpu_torch.data import frame_store
+    from vidu4d_tpu_torch.engine.gs4d_trainer import Stage3Trainer
+
+    db = make_fake_db(tmp_path, num_vids=1, T=8, H=RES, W=RES)
+    base = _base(tmp_path, db)
     s3 = Stage3Trainer({**base, "logname": "s3", "pixels_per_image": -1, "imgs_per_gpu": 1,
                         "fg_motion": "gs-bob", "gs_capacity": 128, "gs_init_samples": 96},
                        "cpu")
@@ -133,11 +191,45 @@ def test_trainers_count_frames_from_the_store_and_the_maps(tmp_path):
         assert all(np.isfinite(float(v)) for v in m.values())
     assert vidloader.COUNTS == {"store": 2 * steps, "maps": 0}
 
-    s2 = Stage2Trainer({**base, "logname": "s2", "pixels_per_image": 4, "imgs_per_gpu": 2,
-                        "fg_motion": "bob", "field_depth": 2, "field_width": 32,
-                        "train_depth_samples": 8, "num_rounds": 2, "iters_per_round": 2},
-                       "cpu")
+    s2 = _s2_trainer(base, "s2")
     vidloader.reset_counts()
     for _ in range(steps):
         s2._next_batch()
+    assert s2.frame_store is not None
+    assert vidloader.COUNTS == {"store": 2 * 2 * steps, "maps": 0}
+
+    monkeypatch.setattr(frame_store, "free_bytes", lambda device: 0)
+    s2 = _s2_trainer(base, "s2maps")
+    vidloader.reset_counts()
+    for _ in range(steps):
+        s2._next_batch()
+    assert s2.frame_store is None
     assert vidloader.COUNTS == {"store": 0, "maps": 2 * 2 * steps}
+
+
+@pytest.mark.parametrize("num_vids", [1, 2])
+def test_stage2_trainer_draws_the_map_paths_batches(tmp_path, monkeypatch, num_vids):
+    """A Stage-2 trainer's initial draw reads nothing, and its first
+    training batches from the store are those of a trainer on the map path
+    built with the same seed, and of a `PairBatcher` that reads the
+    initial batch and then the training ones."""
+    from vidu4d_tpu_torch.data import frame_store
+
+    db = make_fake_db(tmp_path, num_vids=num_vids, T=8, H=RES, W=RES, seed=num_vids)
+    base = _base(tmp_path, db)
+    vidloader.reset_counts()
+    stored = _s2_trainer(base, "stored")
+    assert vidloader.COUNTS == {"store": 0, "maps": 0}
+    assert stored.frame_store is not None
+    datasets = _datasets(db, 0, 4)
+    ref = data_utils.PairBatcher(datasets, 2, seed=0, num_hosts=1, host_id=0)
+    ref.next_batch()
+    monkeypatch.setattr(frame_store, "free_bytes", lambda device: 0)
+    maps = _s2_trainer(base, "maps")
+    for _ in range(3):
+        want = data_utils.compute_frameid(data_utils.flatten_pairs(ref.next_batch()),
+                                          stored.frame_info)
+        got = stored._next_batch()
+        _assert_same(got, want)
+        _assert_same(maps._next_batch(), want)
+    assert maps.frame_store is None

@@ -201,11 +201,12 @@ def s2_profiled(db, tmp_path_factory):
 
 @pytest.mark.parametrize("source", ["profiler", "collector"])
 def test_stage2_span_tree(s2_profiled, source):
-    """One step: the batch read (a read per frame), the forward with its four
-    warps (the samples' backward warp, the flow's and the reprojection's
-    forward warps, the cycle), two field blocks, two renders (the composite
-    and the field's own), two regulariser blocks (the eikonal, the sampled
-    regularisers), the backward and AdamW."""
+    """One step: the batch from the frame store (one read, the host's
+    draws turned into indices; one copy, the gathers), the forward with its
+    four warps (the samples' backward warp, the flow's and the
+    reprojection's forward warps, the cycle), two field blocks, two renders
+    (the composite and the field's own), two regulariser blocks (the
+    eikonal, the sampled regularisers), the backward and AdamW."""
     traced, records = s2_profiled
     tree = (traced_tree(traced) if source == "profiler"
             else [(name, parent) for name, parent, _, _ in records])
@@ -213,7 +214,7 @@ def test_stage2_span_tree(s2_profiled, source):
     assert all(parent == S2_TREE[name] for name, parent in tree), tree
     count = lambda n: sum(1 for name, _ in tree if name == n)
     assert count("s2.step") == count("s2.forward") == count("s2.optim") == 1
-    assert count("data.read") == 2 * S2_PAIRS and count("warp") == 4
+    assert count("data.read") == count("data.copy") == 1 and count("warp") == 4
     assert count("s2.field") == count("s2.render") == count("s2.reg") == 2
 
 

@@ -22,7 +22,9 @@ memory maps (by the native gather of `data.native` where it builds, unless
 ``VIDU4D_NATIVE_SAMPLER=0``; else by numpy, with the same values). The rng
 draws are the JAX package's, so the same seed gives the same pairs and
 pixels. `PairBatcher.draw` makes a batch's draws apart from its reads, so
-`data.frame_store` serves whole images for the same draws.
+`data.frame_store` serves the same draws from device memory, whole images
+and sampled pixels alike; the trainers read from the maps only where the
+store does not fit.
 """
 
 from __future__ import annotations

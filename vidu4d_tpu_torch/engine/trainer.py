@@ -35,6 +35,7 @@ clipping and AdamW read them. `mlp_init` and the proxy geometry run on rank
 from __future__ import annotations
 
 import copy
+import functools
 import os
 import pickle
 import time
@@ -46,6 +47,7 @@ import torch.nn.functional as F
 
 from vidu4d_tpu_torch import convert
 from vidu4d_tpu_torch.data import data_utils
+from vidu4d_tpu_torch.data.frame_store import FrameStore
 from vidu4d_tpu_torch.engine.model import FIELD_CATEGORIES, DvrModel
 from vidu4d_tpu_torch.engine.optim import adam_step_, make_stage2_optimizer
 from vidu4d_tpu_torch.engine.schedules import progress_schedule
@@ -147,9 +149,9 @@ class Stage2Trainer:
         self.batcher = data_utils.PairBatcher(self.datasets, opts.get("imgs_per_gpu", 256),
                                               seed=seed, num_hosts=1, host_id=0)
         # the JAX trainer draws one batch to initialise its parameters
-        # (`trainer.py:179`): drawn here too, so the same seed gives the
-        # same training batches
-        self.batcher.next_batch()
+        # (`trainer.py:179`): its draws are made here too (nothing is read),
+        # so the same seed gives the same training batches
+        self.batcher.draw()
         self.optimizer = make_stage2_optimizer(
             self.model, learning_rate=opts.get("learning_rate", 5e-4),
             total_steps=self.total_steps, num_rounds=opts["num_rounds"],
@@ -181,8 +183,18 @@ class Stage2Trainer:
 
     # ------------------------------------------------------------------
 
+    @functools.cached_property
+    def frame_store(self) -> Optional[FrameStore]:
+        """Every frame read once into the device's memory (at the first
+        batch: a trainer that only renders or exports never builds it),
+        each batch's sampled pixels then gathered there; None: the
+        memory-map path."""
+        return FrameStore.build(self.datasets, self.frame_info.frame_offset_raw, self.device)
+
     @span("data.batch")
     def _next_batch(self) -> Dict[str, torch.Tensor]:
+        if self.frame_store is not None:
+            return self.frame_store.sampled_batch(self.batcher.draw())
         batch = data_utils.flatten_pairs(self.batcher.next_batch())
         batch = data_utils.compute_frameid(batch, self.frame_info)
         with span("data.copy"):
