@@ -2259,8 +2259,6 @@ def stage2_small_vs_cpu(tmp, fg_motion="bob", field_type="fg", steps=2, init=Non
             if (diff > bound).any():
                 raise AssertionError(f"stage-2 small step {label} {step} param {k}: "
                                      f"{float(diff.max())}")
-        for tr in (cpu, gpu):
-            tr.current_steps += 1
     tag = "" if label == "fg-bob" else f" {label}"
     log(f"[stage2 small step cpu-vs-gpu float64{tag}] {json.dumps(worst)} "
         f"(loss: max relative difference; grad, param: max share of their bounds; "
@@ -3356,7 +3354,6 @@ def mg_stage2_run(mesh, state_path, ref_path=None):
         m = tr.train_step(batch, draws)
         torch.cuda.synchronize()
         rep["step_ms"].append((time.perf_counter() - t0) * 1e3)
-        tr.current_steps += 1
         lr = tr.optimizer.schedule(i)
         rep["agree"].append(tr.ranks_agree())
         metrics = {k: float(v) for k, v in m.items()}

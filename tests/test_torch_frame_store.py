@@ -170,41 +170,35 @@ def _base(tmp_path, db):
             "data_prefix": "crop", "train_res": RES}
 
 
-def test_trainers_count_frames_from_the_store_and_the_maps(tmp_path, monkeypatch):
-    """A Stage-3 trainer (whole images) serves each step's pair from the
-    store and none from the maps; so does a Stage-2 trainer (sampled
-    pixels); a Stage-2 trainer whose store does not fit reads every frame
-    from the maps."""
+@pytest.mark.parametrize("stage,path", [(3, "store"), (3, "maps"), (2, "store"),
+                                        (2, "maps")])
+def test_trainers_count_frames_from_the_store_and_the_maps(tmp_path, monkeypatch, stage,
+                                                          path):
+    """A trainer (Stage 3: whole images; Stage 2: sampled pixels) takes
+    finite steps on each step's frames from the store and none from the
+    maps, or, where its store does not fit, on every frame read from the
+    maps."""
     from vidu4d_tpu_torch.data import frame_store
     from vidu4d_tpu_torch.engine.gs4d_trainer import Stage3Trainer
 
     db = make_fake_db(tmp_path, num_vids=1, T=8, H=RES, W=RES)
     base = _base(tmp_path, db)
-    s3 = Stage3Trainer({**base, "logname": "s3", "pixels_per_image": -1, "imgs_per_gpu": 1,
-                        "fg_motion": "gs-bob", "gs_capacity": 128, "gs_init_samples": 96},
-                       "cpu")
-    assert s3.frame_store is not None
+    if path == "maps":
+        monkeypatch.setattr(frame_store, "free_bytes", lambda device: 0)
+    if stage == 3:
+        tr = Stage3Trainer({**base, "logname": "s3", "pixels_per_image": -1,
+                            "imgs_per_gpu": 1, "fg_motion": "gs-bob", "gs_capacity": 128,
+                            "gs_init_samples": 96}, "cpu")
+    else:
+        tr = _s2_trainer(base, "s2")
     vidloader.reset_counts()
     steps = 2
     for _ in range(steps):
-        m = s3.train_step()
+        m = tr.train_step()
         assert all(np.isfinite(float(v)) for v in m.values())
-    assert vidloader.COUNTS == {"store": 2 * steps, "maps": 0}
-
-    s2 = _s2_trainer(base, "s2")
-    vidloader.reset_counts()
-    for _ in range(steps):
-        s2._next_batch()
-    assert s2.frame_store is not None
-    assert vidloader.COUNTS == {"store": 2 * 2 * steps, "maps": 0}
-
-    monkeypatch.setattr(frame_store, "free_bytes", lambda device: 0)
-    s2 = _s2_trainer(base, "s2maps")
-    vidloader.reset_counts()
-    for _ in range(steps):
-        s2._next_batch()
-    assert s2.frame_store is None
-    assert vidloader.COUNTS == {"store": 0, "maps": 2 * 2 * steps}
+    assert (tr.frame_store is None) == (path == "maps")
+    frames = 2 * tr.batcher.imgs_per_batch * steps
+    assert vidloader.COUNTS == {"store": 0, "maps": 0, path: frames}
 
 
 @pytest.mark.parametrize("num_vids", [1, 2])

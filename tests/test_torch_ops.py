@@ -135,8 +135,9 @@ def test_port_imports_no_jax():
     """Every module of the port (the CLI entry points and their config
     among them, the static 2DGS path's and Stage 2's too, the skeleton
     and the NVP warp, Stage 1's pipeline, RAFT, segmentation and canonical
-    fit, the data-parallel group, host map, visualisation and native
-    gather, the end-to-end quality run and the depth scorers), and
+    fit, the data-parallel group, host map, visualisation and the
+    trainers' round shell, the end-to-end quality run and the depth
+    scorers), and
     chip_smoke.py, imports
     without jax and without any module of the JAX package (in a fresh
     process)."""
@@ -155,7 +156,7 @@ def test_port_imports_no_jax():
         "    'preprocess.segment', 'preprocess.canonical', 'preprocess.train_raft',\n"
         "    'preprocess.train_featnet', 'preprocess.train_depthnet',\n"
         "    'preprocess.train_common', 'parallel.sharding', 'utils.host_map', 'utils.vis',\n"
-        "    'data.native', 'examples.synthetic_e2e', 'preprocess.eval_depthnet',\n"
+        "    'engine.rounds', 'examples.synthetic_e2e', 'preprocess.eval_depthnet',\n"
         "    'preprocess.eval_depth_registration')}\n"
         "assert entry <= set(mods), sorted(entry - set(mods))\n"
         "import chip_smoke\n"

@@ -97,7 +97,7 @@ def _s3_case(mesh, case):
     world = 1 if mesh is None else mesh.world
     tt = Stage3Trainer({**case["opts"], "ngpu": world,
                         "logname": f"{case['name']}-{world}"}, "cpu", group=mesh)
-    s = case["snap"]["surfels"]  # a store of the snapshot's shapes, then its values
+    s = case["store"]  # a store of the snapshot's shapes, then the snapshot's values
     tt.set_surfels(sf.SurfelState(sf.SurfelParams(*[p.clone().requires_grad_(True)
                                                     for p in s.params]),
                                   *(x.clone() for x in s[1:])))
@@ -174,15 +174,19 @@ def s3(tmp_path_factory):
     tt.gs_adam = convert.gs_adam_from_jax(before[2], "cpu")
     tt.warp_opt.load_state(convert.warp_adamw_from_optax(before[3], tt.deformer, "cpu"))
     snap = tt._snapshot()
+    s = tt.surfels
+    store = sf.SurfelState(sf.SurfelParams(*[p.detach().clone() for p in s.params]), *s[1:])
     uneven = _stage3_opts(db, tmp, 3, reg_volume_loss_wt=0.01, lambda_dssim=0.2,
                           lambda_dist=0.1)
     batch3 = {k: v.numpy() for k, v in Stage3Trainer(
         {**uneven, "logname": "batch3"}, "cpu")._next_batch().items()}
     cases = [
-        {"name": "even", "opts": even, "snap": snap, "batch": batch, "use_2dgs_reg": False},
-        {"name": "uneven", "opts": uneven, "snap": snap, "batch": batch3,
+        {"name": "even", "opts": even, "snap": snap, "store": store, "batch": batch,
+         "use_2dgs_reg": False},
+        {"name": "uneven", "opts": uneven, "snap": snap, "store": store, "batch": batch3,
          "use_2dgs_reg": True},
-        {"name": "hooks", "opts": {**even, **HOOKS}, "snap": snap, "batch": None},
+        {"name": "hooks", "opts": {**even, **HOOKS}, "snap": snap, "store": store,
+         "batch": None},
     ]
     one = _s3_rank(None, cases)
     ranks = sharding.spawn(_s3_rank, 2, args=(cases,), device="cpu")

@@ -1,6 +1,7 @@
 """The port's Stage-3 round loop against the JAX Stage3Trainer's, on the CPU:
 the hook schedule, a whole `train_one_round` with every hook, the eval
-render, the gradient-spike rollback and the checkpoint.
+render and the checkpoint (the rollback, which both trainers share, in
+tests/test_torch_rounds.py).
 
 One JAX trainer (32x32, default configuration, raster_impl="tiles" with a
 per-tile budget above the densest tile, so it composites every entry as the
@@ -281,45 +282,19 @@ def test_render_batch_matches_jax(setup, case):
     assert ok.mean() >= 0.995, ok.mean()
 
 
-def _state(tt, warp_opt=True):
-    """Clones of the trainer's state by name, with the optimisers' counts
-    (the warp AdamW's only with ``warp_opt``: checkpoints leave it out)."""
+def _state(tt):
+    """Clones of the trainer's state by name, with the surfel Adam's count
+    (not the warp AdamW's: checkpoints leave it out)."""
     s, a = tt.surfels, tt.gs_adam
     out = {f"surfels.{i}": x.detach().clone() for i, x in enumerate((*s.params, *s[1:]))}
     out.update({f"adam.{i}": x.clone() for i, x in enumerate((*a.mu, *a.nu))})
     out.update({f"deformer.{k}": v.clone() for k, v in tt.deformer.state_dict().items()})
     out["adam.count"] = torch.tensor(a.count)
-    if warp_opt:
-        w = tt.warp_opt
-        out.update({f"warp.{m}.{k}": v.clone() for m, moments in (("mu", w.mu), ("nu", w.nu))
-                    for k, v in moments.items()})
-        out["warp.count"] = torch.tensor(w.count)
     return out
 
 
 def _equal(a, b):
     return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
-
-
-def test_rollback_restores_the_state_of_two_rounds_before(setup):
-    """With rollback_on_grad_spike, a spike restores the snapshot taken at
-    the start of the round before last, and it stays intact for a second
-    rollback: the cache holds copies, not the live tensors."""
-    _, port, _ = setup
-    tt = port("port_rollback", rollback_on_grad_spike=True, grad_spike_thresh=1e9,
-              num_rounds=2, iters_per_round=2, iters_per_dispatch=3, save_freq=100)
-    start = _state(tt)
-    tt.train()
-    assert tt.current_steps == 4 and tt.warp_opt.count == 4  # k forced to 1
-    trained = _state(tt)
-    assert not _equal(trained, start)
-    tt.opts["grad_spike_thresh"] = 1e-12
-    batch = tt._next_batch()
-    m = tt.train_step(batch)
-    assert tt._maybe_rollback(m["gnorm"])
-    assert _equal(_state(tt), start)
-    tt.train_step(batch)
-    assert tt._maybe_rollback(m["gnorm"]) and _equal(_state(tt), start)
 
 
 def test_checkpoint_round_trip(setup, tmp_path):
@@ -339,7 +314,7 @@ def test_checkpoint_round_trip(setup, tmp_path):
     payload = fresh.load_checkpoint(os.path.join(tt.save_dir, "ckpt_0001.pth"),
                                     reset_steps=False)
     assert (fresh.current_steps, fresh.current_round) == (2, 1)
-    assert _equal(_state(tt, warp_opt=False), _state(fresh, warp_opt=False))
+    assert _equal(_state(tt), _state(fresh))
     assert fresh.gs_adam.count == 2
     with open(os.path.join(tt.save_dir, "ckpt_latest.pth"), "rb") as f:
         data = f.read()

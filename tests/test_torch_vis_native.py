@@ -1,9 +1,7 @@
-"""The port's last small modules against the JAX package's:
-vidu4d_tpu_torch/data/native.py (the ctypes gather over csrc/batch_sampler.cpp,
-built into vidu4d_tpu_torch/_build/) with the native read path of
-data/vidloader.py, and vidu4d_tpu_torch/utils/vis.py. Every comparison is
-bitwise: both are the same numpy / C++ code on the same inputs (the
-float16 -> float32 conversion is exact)."""
+"""The port's last small modules against the JAX package's: the
+sampled-pixel read of data/vidloader.py and vidu4d_tpu_torch/utils/vis.py.
+Every comparison is bitwise: both are the same numpy code on the same
+inputs (the float16 -> float32 conversion is exact)."""
 
 import os
 
@@ -11,54 +9,12 @@ import numpy as np
 import pytest
 
 from tests.helpers import make_fake_db
-from vidu4d_tpu_torch.data import native
 from vidu4d_tpu_torch.utils import vis as tvis
 
 
-def _gather_inputs(dtype):
-    rng = np.random.default_rng(0)
-    src = rng.uniform(size=(10, 32, 48, 3)).astype(dtype)
-    fids = rng.integers(0, 10, size=64).astype(np.int32)
-    xy = np.stack([rng.integers(0, 48, size=(64, 16)), rng.integers(0, 32, size=(64, 16))],
-                  axis=-1).astype(np.int32)
-    return src, fids, xy
-
-
-@pytest.mark.parametrize("dtype", [np.float16, np.float32])
-def test_native_gather_matches_numpy_bitwise(dtype):
-    """gather_pixels (native, 1 and 8 threads) equals numpy's fancy-index
-    gather bitwise, and the JAX package's gather."""
-    from vidu4d_tpu.data import native as jnative
-
-    src, fids, xy = _gather_inputs(dtype)
-    want = src[fids[:, None], xy[..., 1], xy[..., 0]].astype(np.float32)
-    assert native.load_library() is not None
-    for threads in (1, 8):
-        got = native.gather_pixels(src, fids, xy, n_threads=threads)
-        assert got.dtype == np.float32 and np.array_equal(got, want)
-    assert np.array_equal(jnative.gather_pixels(src, fids, xy), want)
-    # a 3-D source gains its channel axis
-    got = native.gather_pixels(src[..., 0], fids, xy)
-    assert np.array_equal(got, want[..., :1])
-
-
-def test_library_builds_into_the_build_dir():
-    """The library is compiled into vidu4d_tpu_torch/_build/ (named by the
-    source's hash), not next to the source."""
-    lib = native.load_library()
-    path = lib._name
-    assert os.path.dirname(path) == str(native.BUILD_DIR)
-    assert os.path.basename(path).startswith("libbatch_sampler_")
-    assert native.BUILD_DIR.name == "_build" and native.BUILD_DIR.parent.name == \
-        "vidu4d_tpu_torch"
-    assert native.SOURCE.is_file()
-
-
-def test_read_raw_native_matches_numpy_and_jax(tmp_path, monkeypatch):
-    """read_raw of sampled pixels through the native gather (4 calls: the
-    flow, rgb, mask and depth maps) equals the numpy path
-    (VIDU4D_NATIVE_SAMPLER=0) and the JAX package's read_raw, every key,
-    bitwise; with the variable set the native gather is not called."""
+def test_read_raw_native_matches_numpy_and_jax(tmp_path):
+    """read_raw of sampled pixels (the numpy gather from the memory maps)
+    equals the JAX package's read_raw, every key, bitwise."""
     from vidu4d_tpu.data import data_utils as jdata
     from vidu4d_tpu_torch.data import data_utils as tdata
 
@@ -68,23 +24,12 @@ def test_read_raw_native_matches_numpy_and_jax(tmp_path, monkeypatch):
     ds = tdata.build_datasets(opts)[0]
     jds = jdata.build_datasets(opts)[0]
     xy = np.random.default_rng(0).integers(0, 16, size=(8, 2)).astype(np.int64)
-    calls = []
-    gather = native.gather_pixels
-    monkeypatch.setattr(native, "gather_pixels", lambda *a, **k: calls.append(1) or gather(*a, **k))
     for idx, delta in ((2, 1), (4, 2), (5, -1), (7, -2)):
-        n_calls = len(calls)
-        out_native = ds.read_raw(idx, delta, xy)
-        assert len(calls) == n_calls + 4
-        out_jax = jds.read_raw(idx, delta, xy)
-        with monkeypatch.context() as m:
-            m.setenv("VIDU4D_NATIVE_SAMPLER", "0")
-            m.setattr(native, "gather_pixels", lambda *a, **k: pytest.fail("native called"))
-            out_numpy = ds.read_raw(idx, delta, xy)
-        assert set(out_native) == set(out_numpy) == set(out_jax)
-        for k in out_numpy:
-            for other in (out_native, out_jax):
-                a, b = np.asarray(out_numpy[k]), np.asarray(other[k])
-                assert a.dtype == b.dtype and np.array_equal(a, b), (idx, delta, k)
+        got, want = ds.read_raw(idx, delta, xy), jds.read_raw(idx, delta, xy)
+        assert set(got) == set(want)
+        for k in want:
+            a, b = np.asarray(got[k]), np.asarray(want[k])
+            assert a.dtype == b.dtype and np.array_equal(a, b), (idx, delta, k)
 
 
 TAGS = ["rgb", "rendered", "feature", "feature_nopca", "depth", "mask", "vis2d", "normal",

@@ -18,13 +18,11 @@ Pairs (frame t, t+delta) with delta sampled from {1} + {2,4,8} gated by
 divisibility (`vidloader.py:179-195`). An item is a whole image in raster
 order (``pixels_per_image`` -1, Stage 3) or ``pixels_per_image`` pixels
 drawn without replacement (`RangeSampler`, Stage 2), gathered from the
-memory maps (by the native gather of `data.native` where it builds, unless
-``VIDU4D_NATIVE_SAMPLER=0``; else by numpy, with the same values). The rng
-draws are the JAX package's, so the same seed gives the same pairs and
-pixels. `PairBatcher.draw` makes a batch's draws apart from its reads, so
-`data.frame_store` serves the same draws from device memory, whole images
-and sampled pixels alike; the trainers read from the maps only where the
-store does not fit.
+memory maps by numpy. The rng draws are the JAX package's, so the same
+seed gives the same pairs and pixels. `PairBatcher.draw` makes a batch's
+draws apart from its reads, so `data.frame_store` serves the same draws
+from device memory, whole images and sampled pixels alike; the trainers
+read from the maps only where the store does not fit.
 """
 
 from __future__ import annotations
@@ -196,16 +194,14 @@ class VidDataset:
                  rand_xy: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
         """Frame ``idx`` and its flow towards ``idx + delta``: every pixel in
         raster order, or the pixels ``rand_xy`` (N, 2) gathered straight from
-        the memory maps (`vidloader.py:159`), by the native gather where it
-        is on (`vidloader.py:212-260`), else by numpy: the same values."""
+        the memory maps (`vidloader.py:159`)."""
         COUNTS["maps"] += 1
         if rand_xy is None:
             hxy = self.whole_hxy()
             sel = lambda a: np.asarray(a, np.float32).reshape((-1,) + a.shape[2:])
         else:
             hxy = np.concatenate([rand_xy, np.ones_like(rand_xy[:, :1])], -1)
-            sel = self._native_gather(rand_xy) or (
-                lambda a: np.asarray(a[rand_xy[:, 1], rand_xy[:, 0]], np.float32))
+            sel = lambda a: np.asarray(a[rand_xy[:, 1], rand_xy[:, 0]], np.float32)
         feat_sel = self.sample_feature(idx, hxy)
         flow = sel(self._read_flow(idx, delta))
         rgb = sel(self.mmap["rgb"][idx])
@@ -226,29 +222,6 @@ class VidDataset:
             "frameid_sub": np.int32(idx),
             "hxy": hxy.astype(np.float32),
         }
-
-    @staticmethod
-    def _native_gather(rand_xy: np.ndarray):
-        """The native threaded gather of the pixels ``rand_xy`` from one
-        (H, W[, C]) map (`data.native`, straight from the float16 memory
-        maps), as float32 of numpy's shape; None when
-        ``VIDU4D_NATIVE_SAMPLER=0`` or the library does not build."""
-        if os.environ.get("VIDU4D_NATIVE_SAMPLER", "1") == "0":
-            return None
-        from vidu4d_tpu_torch.data import native
-
-        if native.load_library() is None:
-            return None
-        zero = np.zeros(1, np.int32)
-        xyb = np.ascontiguousarray(rand_xy, np.int32)[None]
-
-        def gather(a):
-            src = a if a.flags.c_contiguous and a.dtype in (np.float16, np.float32) \
-                else np.ascontiguousarray(a, np.float32)
-            out = native.gather_pixels(src[None], zero, xyb)[0]
-            return out[..., 0] if a.ndim == 2 else out
-
-        return gather
 
     @staticmethod
     def flow_row(idx: int, delta: int) -> Tuple[str, int, int]:

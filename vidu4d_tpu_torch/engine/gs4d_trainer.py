@@ -13,11 +13,12 @@ motions with an SE(3) form run the same step, see `check_supported`):
   (after 8k steps) -> backward -> densify statistics -> surfel Adam and
   the warp AdamW.
 
-The round loop around it (`train`, `train_one_round`): an eval render per
-round (`render_batch`, the forward kernel only), the densify / prune /
-opacity-reset / radius-outlier hooks at the JAX cadence (`_densify_hooks`),
-the opt-in gradient-spike rollback, and per-round checkpoints (pickled
-numpy payloads) with a 3DGS ``.ply`` of the alive surfels.
+The round loop around it (`rounds.RoundTrainer`'s `train` and
+`train_one_round`): an eval render per round (`render_batch`, the forward
+kernel only), the densify / prune / opacity-reset / radius-outlier hooks at
+the JAX cadence (`_densify_hooks`), the opt-in gradient-spike rollback, and
+per-round checkpoints (pickled numpy payloads) with a 3DGS ``.ply`` of the
+alive surfels.
 
 The surfels start on the Stage-2 mesh (``gs_init_mesh``,
 `init_surfels_from_mesh`) or as a random cloud; `load_stage2` takes the
@@ -41,21 +42,18 @@ state is rank 0's; checkpoints, logs and eval renders are rank 0's only.
 
 from __future__ import annotations
 
-import functools
 import math
 import os
 import pickle
-import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from vidu4d_tpu_torch import convert
-from vidu4d_tpu_torch.data import data_utils
-from vidu4d_tpu_torch.data.frame_store import FrameStore
 from vidu4d_tpu_torch.engine import losses as losses_mod
 from vidu4d_tpu_torch.engine.optim import WarpAdamW
+from vidu4d_tpu_torch.engine.rounds import RoundTrainer
 from vidu4d_tpu_torch.engine.schedules import progress_schedule
 from vidu4d_tpu_torch.models.fields.skinning import arap_bone_loss
 from vidu4d_tpu_torch.models.gaussian import densify as densify_mod
@@ -84,7 +82,6 @@ from vidu4d_tpu_torch.ops.rasterize.tile_backward import composite_batch
 from vidu4d_tpu_torch.ops.rasterize.tile_forward import check_tile
 from vidu4d_tpu_torch.parallel import sharding
 from vidu4d_tpu_torch.utils.camera_trajectories import construct_batch
-from vidu4d_tpu_torch.utils.logging import ScalarLogger, dump_opts_json
 from vidu4d_tpu_torch.utils import profiler
 
 
@@ -209,49 +206,30 @@ def uniform_pixel_subsample(n_total: int, n_px: int, train_res: int,
     return lambda x: x.index_select(1, idx)
 
 
-class Stage3Trainer:
-    """Stage-3 trainer state, its step and its round loop, on ``device``
-    (the card by default; the CPU, where the kernels' plain versions run,
-    only when asked for with ``device="cpu"``).
+class Stage3Trainer(RoundTrainer):
+    """Stage-3 trainer state, its step and its round loop
+    (`rounds.RoundTrainer`), on ``device`` (the card by default; the CPU,
+    where the kernels' plain versions run, only when asked for with
+    ``device="cpu"``).
 
     opts: the JAX trainer's option dict (`bench.py:78-96` builds one).
     Parameters are drawn from a ``torch.Generator`` seeded with
     ``opts["seed"]``; tests replace them with converted JAX parameters
     (`vidu4d_tpu_torch.convert`). ``current_steps`` counts the steps
-    taken; it switches the 2DGS regularisers on after 8k. The run's
-    directory, ``<logroot>/<seqname>-<logname>``, is created with the
-    options in ``opts.json``.
-
-    ``group``: this rank's `parallel.sharding.Mesh` when ``opts["ngpu"]``
-    > 1 (its world size must be ngpu); None builds it from an initialised
-    process group or a launcher's environment, and raises without one."""
+    taken; it switches the 2DGS regularisers on after 8k."""
 
     def __init__(self, opts: Dict, device="cuda", datasets=None, data_info=None,
                  group: Optional[sharding.Mesh] = None):
         check_supported(opts)
-        self.opts = dict(opts)
-        opts = self.opts
+        opts = dict(opts)
         opts.setdefault("pixels_per_image", -1)  # full images (`gs4d_trainer.py:150`)
         # the tile side, in opts.json too: render / export / reanimate
         # --logdir render at the trained side
         opts.setdefault("raster_tile", 16)
         check_tile(opts["raster_tile"])
-        self.device = torch.device(device)
-        self.group = sharding.trainer_group(opts.get("ngpu", 1) or 1, self.device, group)
-        self.is_root = self.group is None or self.group.rank == 0
-        self.save_dir = os.path.join(opts.get("logroot", "logdir"),
-                                     f"{opts['seqname']}-{opts['logname']}")
-        if self.is_root:
-            os.makedirs(self.save_dir, exist_ok=True)
-            dump_opts_json(self.save_dir, opts)
+        super().__init__(opts, device, datasets, data_info, group, imgs_per_gpu=1)
+        opts = self.opts
         seed = max(opts.get("seed", 0), 0)
-        if datasets is None:
-            # every rank, on every node, draws the whole global batch as
-            # one host does (`sharding.shard_batch` alone splits it)
-            datasets = data_utils.build_datasets(opts, process_index=0)
-        self.datasets = datasets
-        self.data_info = data_info or data_utils.get_data_info(datasets)
-        self.frame_info = self.data_info["frame_info"]
         self.res = opts.get("train_res", 256)
 
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -282,8 +260,6 @@ class Stage3Trainer:
                 torch.as_tensor(cols, device=self.device), cap, sh_degree=sh_degree,
                 generator=gen,
             )
-        self.batcher = data_utils.PairBatcher(datasets, opts.get("imgs_per_gpu", 1), seed=seed,
-                                              num_hosts=1, host_id=0)
         self.gs_lrs = GsLearningRates(
             xyz_init=opts.get("position_lr_init", 5e-5),
             xyz_final=opts.get("position_lr_final", 1.6e-6),
@@ -308,14 +284,8 @@ class Stage3Trainer:
                 num_rounds=opts.get("num_rounds", 60),
                 intrinsics_lr_mult=opts.get("intrinsics_lr_mult", 1.0),
             )
-        self.current_steps = 0
-        self.current_round = 0
-        # per-round snapshots of the last two rounds (rollback_on_grad_spike)
-        self._rollback_cache = [None, None]
         # the hooks that fired: {"hook", "step", and its counts (0-d tensors)}
         self.hook_log = []
-        # wall seconds of each round of `train` (its "Round NNN: time=")
-        self.round_seconds = []
         self.raster_cfg = RasterizeConfig(
             tile=opts["raster_tile"],
             span_cap=opts.get("raster_span_cap", 4),
@@ -332,38 +302,10 @@ class Stage3Trainer:
             out += [*self.warp_opt.mu.values(), *self.warp_opt.nu.values()]
         return out
 
-    def broadcast_state(self) -> None:
-        """Rank 0's trainable state on every rank (after the init and every
-        load; GPU non-determinism must not split the ranks)."""
-        sharding.broadcast_tensors_(self.state_tensors(), self.group)
-
-    def ranks_agree(self) -> bool:
-        """Whether every rank holds the same trainable state (a checksum
-        all-reduce); True for one process."""
-        return sharding.checksum_agrees(self.state_tensors(), self.group)
-
     def set_surfels(self, state: sf.SurfelState) -> None:
         """Replace the surfel store and reset its Adam moments."""
         self.surfels = state
         self.gs_adam = gs_adam_init(state.params)
-
-    @functools.cached_property
-    def frame_store(self) -> Optional[FrameStore]:
-        """With whole images, every frame read once into the device's
-        memory (at the first batch: a trainer that only renders or exports
-        never builds it), each batch then gathered there; None: the
-        memory-map path."""
-        return FrameStore.build(self.datasets, self.frame_info.frame_offset_raw, self.device)
-
-    @profiler.span("data.batch")
-    def _next_batch(self) -> Dict[str, torch.Tensor]:
-        if self.frame_store is not None:
-            return self.frame_store.batch(self.batcher.draw())
-        batch = data_utils.flatten_pairs(self.batcher.next_batch())
-        batch = data_utils.compute_frameid(batch, self.frame_info)
-        with profiler.span("data.copy"):
-            return {k: torch.as_tensor(np.asarray(v), device=self.device)
-                    for k, v in batch.items()}
 
     def _loss_config(self) -> Dict:
         """The loss options and their JAX defaults (`gs4d_trainer.py:304`)."""
@@ -649,7 +591,7 @@ class Stage3Trainer:
         }
 
     # ------------------------------------------------------------------
-    # the round loop
+    # the round's hooks
     # ------------------------------------------------------------------
 
     def _split_noise(self, m: int, shape) -> torch.Tensor:
@@ -698,135 +640,43 @@ class Stage3Trainer:
             self.hook_log.append({"hook": "outlier", "step": m,
                                   "pruned": torch.sum(mask.to(torch.int64))})
 
-    def train_one_round(self, log_fn: Optional[Callable] = None) -> Dict:
-        """``iters_per_round`` steps with the hooks (`gs4d_trainer.py:782-828`).
-        With ``iters_per_dispatch`` k > 1 the hooks run once after every k
-        steps, and after a short final chunk, with span k, as after the JAX
-        trainer's scanned chunks; ``rollback_on_grad_spike`` forces k = 1
-        and may discard a step. log_fn(step, {name: float}) is called when
-        a multiple of 100 steps was passed. Returns the last step's
-        metrics."""
-        opts = self.opts
-        rollback = opts.get("rollback_on_grad_spike", False)
-        iters = opts.get("iters_per_round", 200)
-        k = int(opts.get("iters_per_dispatch", 1) or 1)
-        if rollback:
-            k = 1  # rollback reads every step's gnorm
-        metrics = None
-        done = 0
-        while done < iters:
-            kk = min(k, iters - done)
-            for _ in range(kk):
-                metrics = self.train_step()
-            if rollback and self._maybe_rollback(metrics["gnorm"]):
-                self.current_steps -= 1  # the step is discarded
-                continue
-            done += kk
-            self._densify_hooks(span=kk)
-            if log_fn is not None and self.current_steps % 100 < kk:
-                log_fn(self.current_steps, {n: float(v) for n, v in metrics.items()})
-        return metrics
+    def _after_chunk(self, steps: int) -> None:
+        self._densify_hooks(span=steps)
 
-    def _snapshot(self) -> Dict:
-        """Clones of the trainable state: the surfel store and its Adam,
-        the deformer's state_dict and the warp AdamW's state."""
-        c = lambda x: x.detach().clone()
-        s, a = self.surfels, self.gs_adam
-        snap = {
-            "surfels": sf.SurfelState(sf.SurfelParams(*map(c, s.params)), *map(c, s[1:])),
-            "gs_adam": a._replace(mu=sf.SurfelParams(*map(c, a.mu)),
-                                  nu=sf.SurfelParams(*map(c, a.nu))),
-            "deformer": {k: c(v) for k, v in self.deformer.state_dict().items()},
-        }
+    def _rollback_state(self) -> tuple:
+        """All of `state_tensors`, and both optimisers' counts
+        (`gs4d_trainer.py:713`)."""
+        warp = self.warp_opt.count if self.warp_opt is not None else None
+        return self.state_tensors(), (self.gs_adam.count, warp)
+
+    def _set_counts(self, counts: tuple) -> None:
+        self.gs_adam = self.gs_adam._replace(count=counts[0])
         if self.warp_opt is not None:
-            w = self.warp_opt
-            snap["warp_opt"] = {"count": w.count, "mu": {k: c(v) for k, v in w.mu.items()},
-                                "nu": {k: c(v) for k, v in w.nu.items()}}
-        return snap
+            self.warp_opt.count = counts[1]
 
-    @torch.no_grad()
-    def _restore(self, snap: Dict) -> None:
-        """Copy a `_snapshot` into the live state; the snapshot stays
-        untouched and the optimisers keep their parameter tensors."""
-        s, a = snap["surfels"], snap["gs_adam"]
-        for dst, src in zip((*self.surfels.params, *self.gs_adam.mu, *self.gs_adam.nu),
-                            (*s.params, *a.mu, *a.nu)):
-            dst.copy_(src)
-        self.surfels = sf.SurfelState(self.surfels.params, *(x.clone() for x in s[1:]))
-        self.gs_adam = self.gs_adam._replace(count=a.count)
-        self.deformer.load_state_dict(snap["deformer"])
-        if self.warp_opt is not None:
-            w = snap["warp_opt"]
-            self.warp_opt.load_state({"count": w["count"],
-                                      "mu": {k: v.clone() for k, v in w["mu"].items()},
-                                      "nu": {k: v.clone() for k, v in w["nu"].items()}})
+    def _before_round(self, rnd: int, logger) -> int:
+        """An eval render of frame 0 to the logger (rank 0's); returns where
+        the round's entries of ``hook_log`` start."""
+        if self.is_root:
+            eval_batch = construct_batch(inst_id=0, frameid_sub=np.arange(1),
+                                         eval_res=self.res, field2cam=None, camera_int=None,
+                                         crop2raw=None, device=self.device)
+            rendered = self.render_batch(eval_batch, res=self.res)
+            logger.image(rnd, "eval/rendered", rendered["rendered"][0])
+            logger.image(rnd, "eval/mask", rendered["mask"][0])
+        return len(self.hook_log)
 
-    def _update_rollback_cache(self) -> None:
-        """Two-deep per-round snapshot (`gs4d_trainer.py:713`). Only
-        `_maybe_rollback` reads it, so nothing is copied without
-        ``rollback_on_grad_spike``."""
-        if self.opts.get("rollback_on_grad_spike", False):
-            self._rollback_cache = [self._rollback_cache[1], self._snapshot()]
-
-    def _maybe_rollback(self, gnorm) -> bool:
-        """Gradient-spike rollback to the state of two rounds ago when
-        gnorm > ``grad_spike_thresh`` (`gs4d_trainer.py:720`)."""
-        thresh = self.opts.get("grad_spike_thresh", 5.0)
-        if float(gnorm) <= thresh or self._rollback_cache[0] is None:
-            return False
-        print(f"large grad: {float(gnorm):.2f}, resume from cached weights")
-        self._restore(self._rollback_cache[0])
-        return True
-
-    def train(self, log_fn: Optional[Callable] = None) -> None:
-        """Rounds ``current_round`` .. ``num_rounds`` - 1 (`gs4d_trainer.py:877`):
-        an eval render of frame 0 to the logger, `train_one_round` (traced
-        with ``opts["profile"]``), a checkpoint every ``save_freq`` rounds
-        and after the last, and one line per round. Of a group's ranks,
-        rank 0 alone renders, logs, traces, writes and prints."""
-        root = self.is_root
-        logger = ScalarLogger(self.save_dir) if root else None
-        if not root:
-            log_fn = None
-        elif log_fn is None:
-            log_fn = logger.log_loss_dict
-        num_rounds = self.opts.get("num_rounds", 60)
-        save_freq = self.opts.get("save_freq", 10)
-        try:
-            for rnd in range(self.current_round, num_rounds):
-                self._update_rollback_cache()
-                t0 = time.time()
-                if root:
-                    eval_batch = construct_batch(inst_id=0, frameid_sub=np.arange(1),
-                                                 eval_res=self.res, field2cam=None,
-                                                 camera_int=None, crop2raw=None,
-                                                 device=self.device)
-                    rendered = self.render_batch(eval_batch, res=self.res)
-                    logger.image(rnd, "eval/rendered", rendered["rendered"][0])
-                    logger.image(rnd, "eval/mask", rendered["mask"][0])
-                first_hook = len(self.hook_log)
-                with profiler.round_trace(self.save_dir, rnd,
-                                          enabled=root and self.opts.get("profile", False),
-                                          device=self.device):
-                    metrics = self.train_one_round(log_fn=log_fn)
-                self.current_round = rnd + 1
-                if self.current_round % save_freq == 0 or self.current_round == num_rounds:
-                    self.save_checkpoint(self.current_round)
-                overflow = int(metrics["overflow_splats"])
-                truncated = int(metrics["truncated_entries"])
-                cover = ""
-                if overflow or truncated:
-                    cover = (f" [coverage: {overflow} span-clamped splats,"
-                             f" {truncated} budget-dropped entries]")
-                self.round_seconds.append(time.time() - t0)
-                if root:
-                    print(f"Round {rnd:03d}: time={self.round_seconds[-1]:.3f}s "
-                          f"total={float(metrics['total']):.4f} "
-                          f"alive={int(metrics['alive'])}{cover}"
-                          f"{hooks_note(self.hook_log[first_hook:])}")
-        finally:
-            if logger is not None:
-                logger.close()
+    def _round_note(self, metrics: Dict, first_hook: int) -> str:
+        """The last total, the alive surfels, the coverage losses and the
+        round's hooks."""
+        overflow = int(metrics["overflow_splats"])
+        truncated = int(metrics["truncated_entries"])
+        cover = ""
+        if overflow or truncated:
+            cover = (f" [coverage: {overflow} span-clamped splats,"
+                     f" {truncated} budget-dropped entries]")
+        return (f" total={float(metrics['total']):.4f} alive={int(metrics['alive'])}{cover}"
+                f"{hooks_note(self.hook_log[first_hook:])}")
 
     # ------------------------------------------------------------------
     # rendering and checkpoints

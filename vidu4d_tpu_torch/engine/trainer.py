@@ -34,22 +34,19 @@ clipping and AdamW read them. `mlp_init` and the proxy geometry run on rank
 
 from __future__ import annotations
 
-import copy
-import functools
 import os
 import pickle
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from vidu4d_tpu_torch import convert
-from vidu4d_tpu_torch.data import data_utils
-from vidu4d_tpu_torch.data.frame_store import FrameStore
 from vidu4d_tpu_torch.engine.model import FIELD_CATEGORIES, DvrModel
 from vidu4d_tpu_torch.engine.optim import adam_step_, make_stage2_optimizer
+from vidu4d_tpu_torch.engine.rounds import RoundTrainer
 from vidu4d_tpu_torch.engine.schedules import progress_schedule
 from vidu4d_tpu_torch.models.fields.dyn_nerf import FieldState
 from vidu4d_tpu_torch.models.fields.time_mlp import (
@@ -65,8 +62,7 @@ from vidu4d_tpu_torch.ops.marching import extract_mesh_np, sample_mesh_surface, 
 from vidu4d_tpu_torch.ops.numerics import safe_norm, safe_normalize
 from vidu4d_tpu_torch.ops.quaternion import quaternion_translation_to_se3
 from vidu4d_tpu_torch.parallel import sharding
-from vidu4d_tpu_torch.utils.logging import ScalarLogger, dump_opts_json
-from vidu4d_tpu_torch.utils.profiler import round_trace, span
+from vidu4d_tpu_torch.utils.profiler import span
 
 # the loss options and their JAX defaults (`trainer.py:152-172`)
 LOSS_DEFAULTS = {
@@ -84,42 +80,22 @@ N_SDF_INIT = 5000
 RENDER_CHUNK = 8192
 
 
-class Stage2Trainer:
-    """Stage-2 trainer state, its step and its round loop, on ``device``
-    (the card by default; the CPU only when asked for with
-    ``device="cpu"``). opts: the JAX trainer's option dict. Parameters are
-    drawn from a ``torch.Generator`` seeded with ``max(opts["seed"], 0)``.
-    The run's directory, ``<logroot>/<seqname>-<logname>``, is created with
-    the options in ``opts.json``. ``group``: this rank's
-    `parallel.sharding.Mesh` when ``opts["ngpu"]`` > 1
-    (`sharding.trainer_group`)."""
+class Stage2Trainer(RoundTrainer):
+    """Stage-2 trainer state, its step and its round loop
+    (`rounds.RoundTrainer`), on ``device`` (the card by default; the CPU
+    only when asked for with ``device="cpu"``). opts: the JAX trainer's
+    option dict. Parameters are drawn from a ``torch.Generator`` seeded
+    with ``max(opts["seed"], 0)``."""
+
+    UNLOGGED = ("gnorm",)
 
     def __init__(self, opts: Dict, device="cuda", datasets=None, data_info=None,
                  group: Optional[sharding.Mesh] = None):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Stage2Trainer: CUDA is not available; pass device='cpu' "
                                "to run on the CPU")
-        self.opts = dict(opts)
+        super().__init__(opts, device, datasets, data_info, group, imgs_per_gpu=256)
         opts = self.opts
-        self.group = sharding.trainer_group(opts.get("ngpu", 1) or 1, self.device, group)
-        self.is_root = self.group is None or self.group.rank == 0
-        # every rank, on every node, draws the whole global batch as one
-        # host does (`sharding.shard_batch` alone splits it)
-        self.datasets = (datasets if datasets is not None
-                         else data_utils.build_datasets(opts, process_index=0))
-        self.data_info = data_info or data_utils.get_data_info(self.datasets)
-        self.frame_info = self.data_info["frame_info"]
-        self.save_dir = os.path.join(opts.get("logroot", "logdir"),
-                                     f"{opts['seqname']}-{opts['logname']}")
-        if self.is_root:
-            os.makedirs(self.save_dir, exist_ok=True)
-            dump_opts_json(self.save_dir, opts)
-
-        self.current_steps = 0
-        self.current_round = 0
-        self._rollback_cache = [None, None]
-        self.round_seconds: List[float] = []
         self.total_steps = opts["num_rounds"] * opts["iters_per_round"]
         seed = max(opts.get("seed", 0), 0)
 
@@ -146,8 +122,6 @@ class Stage2Trainer:
         self.states = {cate: FieldState.initial(self.frame_info.num_frames_raw,
                                                 device=self.device)
                        for cate in FIELD_CATEGORIES[opts.get("field_type", "fg")]}
-        self.batcher = data_utils.PairBatcher(self.datasets, opts.get("imgs_per_gpu", 256),
-                                              seed=seed, num_hosts=1, host_id=0)
         # the JAX trainer draws one batch to initialise its parameters
         # (`trainer.py:179`): its draws are made here too (nothing is read),
         # so the same seed gives the same training batches
@@ -167,39 +141,11 @@ class Stage2Trainer:
                 *(x for st in self.states.values() for x in st),
                 *self.optimizer.mu.values(), *self.optimizer.nu.values()]
 
-    def broadcast_state(self) -> None:
-        """Rank 0's model, field states and optimiser moments on every rank."""
-        sharding.broadcast_tensors_(self.state_tensors(), self.group)
-
-    def ranks_agree(self) -> bool:
-        """Whether every rank holds the same state (a checksum all-reduce)."""
-        return sharding.checksum_agrees(self.state_tensors(), self.group)
-
     @property
     def _proxy_mesh(self):
         """The first field's proxy mesh (fg's, when there is an fg field),
         or None."""
         return self.proxy_meshes.get(next(iter(self.states)))
-
-    # ------------------------------------------------------------------
-
-    @functools.cached_property
-    def frame_store(self) -> Optional[FrameStore]:
-        """Every frame read once into the device's memory (at the first
-        batch: a trainer that only renders or exports never builds it),
-        each batch's sampled pixels then gathered there; None: the
-        memory-map path."""
-        return FrameStore.build(self.datasets, self.frame_info.frame_offset_raw, self.device)
-
-    @span("data.batch")
-    def _next_batch(self) -> Dict[str, torch.Tensor]:
-        if self.frame_store is not None:
-            return self.frame_store.sampled_batch(self.batcher.draw())
-        batch = data_utils.flatten_pairs(self.batcher.next_batch())
-        batch = data_utils.compute_frameid(batch, self.frame_info)
-        with span("data.copy"):
-            return {k: torch.as_tensor(np.asarray(v), device=self.device)
-                    for k, v in batch.items()}
 
     def _loss_config(self) -> Dict:
         return {k: self.opts.get(k, v) for k, v in LOSS_DEFAULTS.items()}
@@ -386,7 +332,7 @@ class Stage2Trainer:
             np.save(path.replace(".obj", "-colors.npy"), rgb[:, 0, 0].cpu().numpy())
 
     # ------------------------------------------------------------------
-    # the step and the round loop (`trainer.py:318-488`)
+    # the step and the round's hooks (`trainer.py:318-488`)
     # ------------------------------------------------------------------
 
     @span("s2.step")
@@ -397,7 +343,7 @@ class Stage2Trainer:
         (`DvrModel.reg_draws` from a generator seeded with the step
         number). Returns 0-d tensors: every weighted loss term, "total" and
         "gnorm" (the gradients' global norm before clipping), the global
-        batch's. Does not advance ``current_steps``. ``batch`` is the global
+        batch's. Advances ``current_steps``. ``batch`` is the global
         batch; with a group each rank keeps its share and the gradients are
         summed over the ranks before the optimiser reads them."""
         if batch is None:
@@ -421,90 +367,34 @@ class Stage2Trainer:
             grads = [p.grad for p in self.model.parameters() if p.grad is not None]
             gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
             self.optimizer.step()
+        self.current_steps += 1
         if share is not None:
             loss_dict = sharding.reduce_metrics(loss_dict, share)
             total = sum(loss_dict.values())
         return {**{k: v.detach() for k, v in loss_dict.items()}, "total": total.detach(),
                 "gnorm": gnorm}
 
-    def _update_rollback_cache(self) -> None:
-        """Two-deep per-round snapshot queue (`trainer.py:366`)."""
+    def _rollback_state(self) -> tuple:
+        """The model's parameters and buffers and AdamW's moments, and its
+        count; not the field states (`trainer.py:366`)."""
         opt = self.optimizer
-        snap = ({k: v.detach().clone() for k, v in self.model.state_dict().items()},
-                {"count": opt.count, "mu": copy.deepcopy(opt.mu), "nu": copy.deepcopy(opt.nu)})
-        self._rollback_cache = [self._rollback_cache[1], snap]
+        tensors = [*self.model.state_dict().values(), *opt.mu.values(), *opt.nu.values()]
+        return tensors, (opt.count,)
 
-    def _maybe_rollback(self, gnorm: float) -> bool:
-        """Restore the model of two rounds ago after a gradient spike
-        (`trainer.py:372`, opt-in with ``rollback_on_grad_spike``)."""
-        thresh = self.opts.get("grad_spike_thresh", 5.0)
-        if gnorm <= thresh or self._rollback_cache[0] is None:
-            return False
-        print(f"large grad: {gnorm:.2f}, resume from cached weights")
-        params, opt_state = self._rollback_cache[0]
-        self.model.load_state_dict(params)
-        self.optimizer.load_state({"count": opt_state["count"],
-                                   "mu": copy.deepcopy(opt_state["mu"]),
-                                   "nu": copy.deepcopy(opt_state["nu"])})
-        return True
+    def _set_counts(self, counts: tuple) -> None:
+        (self.optimizer.count,) = counts
 
-    def train_one_round(self, log_fn: Optional[Callable] = None) -> float:
-        """``iters_per_round`` steps. ``iters_per_dispatch`` = k groups them
-        for logging as the JAX trainer's chunks do (the loss of a chunk's
-        last step is logged when the step count crosses a multiple of 100);
-        the steps themselves run one by one. Returns the last total."""
-        rollback = self.opts.get("rollback_on_grad_spike", False)
-        iters = self.opts["iters_per_round"]
-        k = 1 if rollback else int(self.opts.get("iters_per_dispatch", 1) or 1)
-        done, total = 0, 0.0
-        while done < iters:
-            kk = min(k, iters - done)
-            taken = 0
-            while taken < kk:
-                metrics = self.train_step()
-                if rollback and self._maybe_rollback(float(metrics["gnorm"])):
-                    continue
-                self.current_steps += 1
-                taken += 1
-            done += kk
-            total = float(metrics["total"])
-            if log_fn is not None and self.current_steps % 100 < kk:
-                log_fn(self.current_steps, total,
-                       {key: float(v) for key, v in metrics.items()
-                        if key not in ("total", "gnorm")})
-        return total
+    def _round_result(self, metrics: Dict) -> float:
+        """The last step's total, as a float."""
+        return float(metrics["total"])
 
-    def train(self, log_fn: Optional[Callable] = None) -> None:
-        """The rounds from ``current_round`` to ``num_rounds``: proxy
-        geometry, export, the round's steps, the checkpoint every
-        ``save_freq`` rounds and after the last; one ``Round NNN:`` line
-        each (`trainer.py:468`). Each round's wall seconds go to
-        ``round_seconds``. Of a group's ranks, rank 0 alone logs, traces,
-        writes and prints."""
-        root = self.is_root
-        logger = ScalarLogger(self.save_dir) if root else None
-        log_fn = (log_fn or logger.log_loss_dict) if root else None
-        try:
-            for rnd in range(self.current_round, self.opts["num_rounds"]):
-                t0 = time.time()
-                self._update_rollback_cache()
-                self.update_geometry_aux()
-                self.export_geometry(rnd)
-                with round_trace(self.save_dir, rnd,
-                                 enabled=root and self.opts.get("profile", False),
-                                 device=self.device):
-                    total = self.train_one_round(log_fn=log_fn)
-                self.current_round = rnd + 1
-                if (rnd + 1) % self.opts.get("save_freq", 10) == 0 or (
-                        rnd + 1 == self.opts["num_rounds"]):
-                    self.save_checkpoint(self.current_round)
-                self.round_seconds.append(time.time() - t0)
-                if root:
-                    print(f"Round {rnd:03d}: time={self.round_seconds[-1]:.3f}s "
-                          f"loss={total:.4f}")
-        finally:
-            if logger is not None:
-                logger.close()
+    def _before_round(self, rnd: int, logger) -> None:
+        """The proxy geometry, then its export (`trainer.py:468`)."""
+        self.update_geometry_aux()
+        self.export_geometry(rnd)
+
+    def _round_note(self, total: float, before) -> str:
+        return f" loss={total:.4f}"
 
     # ------------------------------------------------------------------
     # rendering (`trainer.py:516`)

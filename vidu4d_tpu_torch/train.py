@@ -26,20 +26,16 @@ from __future__ import annotations
 
 import os
 import sys
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 from vidu4d_tpu_torch import config
 from vidu4d_tpu_torch.parallel import sharding
 
 
-def log_fn(step: int, *rest) -> None:
+def log_fn(step: int, scalars: Dict[str, float]) -> None:
     """The JAX CLI's console line: ``step N: k=v ...``, the 8 largest terms."""
-    if isinstance(rest[-1], dict):
-        top = sorted(rest[-1].items(), key=lambda kv: -abs(float(kv[1])))[:8]
-        msg = " ".join(f"{k}={float(v):.4f}" for k, v in top)
-    else:
-        msg = str(rest)
-    print(f"step {step}: {msg}")
+    top = sorted(scalars.items(), key=lambda kv: -abs(float(kv[1])))[:8]
+    print(f"step {step}: " + " ".join(f"{k}={float(v):.4f}" for k, v in top))
 
 
 def main(argv: Optional[Sequence[str]] = None):

@@ -28,12 +28,11 @@ class ScalarLogger:
         for k, v in values.items():
             self.writer.add_scalar(f"{prefix}{k}", float(v), step)
 
-    def log_loss_dict(self, step: int, *rest) -> None:
-        """The trainer's log_fn signature: (step, [total,] loss_dict)."""
-        loss_dict = rest[-1] if isinstance(rest[-1], dict) else {}
-        self.scalars(step, loss_dict, prefix="loss/")
-        if step % self.console_every == 0 and loss_dict:
-            top = sorted(loss_dict.items(), key=lambda kv: -abs(float(kv[1])))
+    def log_loss_dict(self, step: int, scalars: Dict[str, float]) -> None:
+        """The trainers' log_fn: (step, {name: value})."""
+        self.scalars(step, scalars, prefix="loss/")
+        if step % self.console_every == 0 and scalars:
+            top = sorted(scalars.items(), key=lambda kv: -abs(float(kv[1])))
             msg = " ".join(f"{k}={float(v):.5f}" for k, v in top[:10])
             print(f"step {step}: {msg}")
 
