@@ -41,6 +41,8 @@ COUNTS = {
     "tile_backward": 0,
     "tile_forward_plain": 0,
     "tile_backward_plain": 0,
+    "point_reduce": 0,
+    "point_reduce_plain": 0,
 }
 
 
@@ -130,6 +132,11 @@ def library() -> ctypes.CDLL:
         layout.restype = i
     lib.vidu4d_tile_side.argtypes = [i]
     lib.vidu4d_tile_side.restype = i
+    for reduce in (lib.vidu4d_point_reduce, lib.vidu4d_point_reduce_f64):
+        reduce.argtypes = [p] * 4 + [i] * 7 + [p]
+        reduce.restype = i
+    lib.vidu4d_point_reduce_occupancy.argtypes = [i, i]
+    lib.vidu4d_point_reduce_occupancy.restype = i
     lib.vidu4d_error_string.argtypes = [i]
     lib.vidu4d_error_string.restype = ctypes.c_char_p
     return lib

@@ -11,6 +11,7 @@ from torch import nn
 from vidu4d_tpu_torch.data.frame_info import FrameInfo
 from vidu4d_tpu_torch.models.fields.embeddings import TimeEmbedding, pos_embed
 from vidu4d_tpu_torch.models.fields.mlp import CondMLP
+from vidu4d_tpu_torch.ops.point_reduce import reduce_points
 from vidu4d_tpu_torch.ops.quaternion import (
     DualQuaternion,
     dual_quaternion_apply,
@@ -20,12 +21,35 @@ from vidu4d_tpu_torch.ops.quaternion import (
 )
 
 
+class _BoneRotate(torch.autograd.Function):
+    """``einsum("mbij,mnj->mnbi", rmat, xyz)``: points (M, N, 3) into every
+    bone's frame by its rotation (M, B, 3, 3). The rotations' gradient, a
+    sum over the N points, goes to `reduce_points`."""
+
+    @staticmethod
+    def forward(ctx, rmat, xyz):
+        ctx.save_for_backward(rmat, xyz)
+        return torch.einsum("mbij,mnj->mnbi", rmat, xyz)
+
+    @staticmethod
+    def backward(ctx, g):
+        rmat, xyz = ctx.saved_tensors
+        m, b = rmat.shape[:2]
+        g2 = g.reshape(m, g.shape[1], b * 3)
+        g_rmat = g_xyz = None
+        if ctx.needs_input_grad[0]:
+            g_rmat = reduce_points(g2, xyz).reshape(rmat.shape)
+        if ctx.needs_input_grad[1]:
+            g_xyz = torch.bmm(g2, rmat.reshape(m, b * 3, 3))
+        return g_rmat, g_xyz
+
+
 def get_bone_coords(xyz: torch.Tensor, bone2obj: DualQuaternion) -> torch.Tensor:
     """Object-space points -> per-bone coordinates (`skinning.py:27`).
 
     The DQ inverse runs on the per-bone arrays; when the bones are per frame
     only (the skinning hot path) it is applied to the points as one matmul,
-    x_bone = R_b x + t_b.
+    x_bone = R_b x + t_b (`_BoneRotate`).
 
     xyz (..., 3); bone2obj ((..., B, 4), (..., B, 4)) broadcastable -> (..., B, 3)
     """
@@ -37,7 +61,7 @@ def get_bone_coords(xyz: torch.Tensor, bone2obj: DualQuaternion) -> torch.Tensor
     if len(lead_b) >= 1 and lead_b[0] == lead_x[0] and all(d == 1 for d in lead_b[1:]):
         m = lead_x[0]
         rmat = quaternion_to_matrix(q.reshape(m, b, 4))  # (M, B, 3, 3)
-        xb = torch.einsum("mbij,mnj->mnbi", rmat, xyz.reshape(m, -1, 3))
+        xb = _BoneRotate.apply(rmat, xyz.reshape(m, -1, 3))
         xb = xb.reshape(lead_x + (b, 3))
         return xb + t.reshape((m,) + (1,) * (len(lead_x) - 1) + (b, 3))
     xyz_e = xyz[..., None, :].expand(lead_x + (b, 3))

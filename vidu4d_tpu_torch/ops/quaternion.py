@@ -11,6 +11,8 @@ from typing import Tuple
 
 import torch
 
+from vidu4d_tpu_torch.ops.point_reduce import reduce_points
+
 DualQuaternion = Tuple[torch.Tensor, torch.Tensor]
 QuaternionTranslation = Tuple[torch.Tensor, torch.Tensor]
 
@@ -162,6 +164,29 @@ def dual_quaternion_normalize(dq: DualQuaternion) -> DualQuaternion:
     return q_r * inv_mag, q_d * inv_mag
 
 
+class _BoneBlend(torch.autograd.Function):
+    """``(w @ qr, w @ qd)`` per batch entry: weights w (M, N, B), bone
+    parts (M, B, 4). The forward is the two einsums; in the backward the
+    bones' gradients, sums over the N points, go to `reduce_points`."""
+
+    @staticmethod
+    def forward(ctx, w, qr, qd):
+        ctx.save_for_backward(w, qr, qd)
+        return torch.einsum("mnb,mbd->mnd", w, qr), torch.einsum("mnb,mbd->mnd", w, qd)
+
+    @staticmethod
+    def backward(ctx, g_r, g_d):
+        w, qr, qd = ctx.saved_tensors
+        g_w = g_qr = g_qd = None
+        if ctx.needs_input_grad[0]:
+            g_w = torch.bmm(g_r, qr.transpose(1, 2)) + torch.bmm(g_d, qd.transpose(1, 2))
+        if ctx.needs_input_grad[1]:
+            g_qr = reduce_points(w, g_r)
+        if ctx.needs_input_grad[2]:
+            g_qd = reduce_points(w, g_d)
+        return g_w, g_qr, g_qd
+
+
 def dual_quaternion_skinning(
     dual_quat: DualQuaternion,
     pts: torch.Tensor,
@@ -173,7 +198,8 @@ def dual_quaternion_skinning(
 
     Per point, every bone quaternion is sign-aligned to the max-weight
     bone's hemisphere before blending. The sign is piecewise constant, so it
-    is computed without gradient.
+    is computed without gradient. The bones' gradients are sums over the
+    points (`_BoneBlend`).
 
     Args:
         dual_quat: ``((M, B, 4), (M, B, 4))`` per-bone SE(3) as dual quats.
@@ -196,8 +222,7 @@ def dual_quaternion_skinning(
         sign = torch.where(dots > 0, 1.0, -1.0).to(skin_flat.dtype)
 
     w_signed = skin_flat * sign
-    qr_w = torch.einsum("mnb,mbd->mnd", w_signed, qr_bones)
-    qd_w = torch.einsum("mnb,mbd->mnd", w_signed, qd_bones)
+    qr_w, qd_w = _BoneBlend.apply(w_signed, qr_bones, qd_bones)
     qr_w, qd_w = dual_quaternion_normalize((qr_w, qd_w))
 
     if return_qt:
