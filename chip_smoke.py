@@ -53,14 +53,19 @@ Phases (any failed check raises, so the exit code is non-zero):
      tile8_* / tile32_* fields;
   7. main path: reset the launch counters, run 2 warm-up + 8 timed steps,
      then 2 steps with the 2DGS terms, read the counters: both kernels must
-     have launched and no plain version run (point_reduce's neither); every
+     have launched and no plain version run (point_reduce's and
+     slab_scatter's neither; slab_scatter once a frame, 2 a step); every
      loss term of the configuration present and finite, gnorm finite, the
      deformer moved by its AdamW; then one more step records the inputs of
      its `point_reduce` calls (the warp's backward sums over points), and
      `point_reduce_check` holds the kernel on each against its plain
      version in float64 (PR_REL_TOL of the sum of |terms|, the same bits on
      a second call) and times it, the plain version and cuBLAS's bmm, with
-     its bound; the kernels line gains the point_reduce entry;
+     its bound; the same step records its two `slab_scatter` calls (the
+     entry-capped tile tables), and `slab_scatter_check` holds them to the
+     same bits twice and bit for bit the plain version on a CPU copy, and
+     times them; the kernels line gains the point_reduce entry and the
+     slab_scatter entry's main_* fields;
   8. reduced path: the same at 2 warm-up + 4 timed steps;
   9. the densify / opacity-reset / outlier hooks on the CPU and on the card
      from one seeded state (capacity 8192, 4096 alive, the same split
@@ -124,7 +129,10 @@ Phases (any failed check raises, so the exit code is non-zero):
      volume; launches K1 = steps + 8 eval + 6 depth renders, K2 = steps,
      no plain call. Then 2 + 8 steps at active SH 3 on one camera, and both
      kernels against their plain versions on the last one's inputs (timed,
-     with pairs and bounds). Prints the step, hook, eval (render, PSNR,
+     with pairs and bounds), and `slab_scatter_check` on that step's own
+     scatter arguments (the same bits twice, bit for bit its plain version
+     on a CPU copy; timed beside the plain version and index_add_, with its
+     bound: the kernels line's slab_scatter entry). Prints the step, hook, eval (render, PSNR,
      SSIM, LPIPS per view), .ply and extraction (render, fuse_tsdf,
      marching_tets, weld) times, the entries per frame and the mesh's
      size.
@@ -312,6 +320,7 @@ symmetric Chamfer distance 2% of its extent; the config text equal.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -450,6 +459,12 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # from one step: each output within this share of its sum of |terms|
 # (sum_n |a_np| |b_nq|: float32 rounding over up to 8e5 terms)
 PR_REL_TOL = 1e-5
+# the modules whose kernel entry points `recording` wraps
+POINT_REDUCE = "vidu4d_tpu_torch.ops.point_reduce"
+SLAB_SCATTER = "vidu4d_tpu_torch.ops.rasterize.slab_scatter"
+# what the kernels line's slab_scatter entry reports of each recorded step
+SLAB_SCATTER_FIELDS = ("calls", "same_bits", "equal_plain", "ms", "plain_ms", "library_ms",
+                       "bound_ms", "bound_by", "rows", "live_rows", "surfels")
 # Stage 2 (stage2_path): the README recipe (--fg_motion bob --rgb_timefree
 # --rgb_dirfree, every other flag at its default: 256 pairs x 16 pixels, 64
 # samples per ray, an 8 x 256 field, 25 bones) on make_fake_db(T=16) at
@@ -661,32 +676,32 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-class recording_point_reduce:
-    """Within the block, every `point_reduce` call's inputs are appended to
-    ``store`` (copies, as (a, b)) before the kernel runs."""
+class recording:
+    """Within the block, every call of ``module.name`` (``module`` an import
+    path; its callers look the name up when they call) appends its arguments
+    to ``store`` (tensors copied) before it runs."""
 
-    def __init__(self, store):
-        self.store = store
+    def __init__(self, module, name, store):
+        import importlib
+
+        self.module, self.name, self.store = importlib.import_module(module), name, store
 
     def __enter__(self):
-        from vidu4d_tpu_torch.ops import point_reduce as pr
+        self.fn = fn = getattr(self.module, self.name)
 
-        self.fn = fn = pr.point_reduce
-
-        def record(a, b):
-            self.store.append((a.detach().clone(), b.detach().clone()))
-            return fn(a, b)
-        pr.point_reduce = record
+        def record(*args):
+            self.store.append(tuple(a.detach().clone() if hasattr(a, "detach") else a
+                                    for a in args))
+            return fn(*args)
+        setattr(self.module, self.name, record)
         return self.store
 
     def __exit__(self, *exc):
-        from vidu4d_tpu_torch.ops import point_reduce as pr
-
-        pr.point_reduce = self.fn
+        setattr(self.module, self.name, self.fn)
 
 
 def point_reduce_check(calls, label, reps=20):
-    """`point_reduce` on the inputs one step recorded (`recording_point_reduce`)
+    """`point_reduce` on the inputs one step recorded (`recording`)
     against its plain version in float64, and timed. Per call: the largest
     |kernel - float64| as a share of sum_n |a| |b| (PR_REL_TOL) and in
     absolute terms, the same bits on a second call, the kernel's ms, the
@@ -747,6 +762,55 @@ def point_reduce_check(calls, label, reps=20):
         raise AssertionError(f"[point_reduce {label}] {len(calls)} calls, same bits "
                              f"{out['same_bits']}, max error {out['max_rel_err']} of the "
                              f"sum of |terms| (bound {PR_REL_TOL})")
+    return out
+
+
+def slab_scatter_check(calls, label, reps=20):
+    """`slab_scatter` on the arguments one step recorded
+    (`recording`): per call the same bits on a second call and
+    bit for bit its plain version on a CPU copy; the kernel's ms, the plain
+    version's on the card, the library call's (``index_add_`` of every
+    slab row's first n_used columns into a zero (P, n_used) output: the call
+    the slab's backward made before the kernel), and the bound (bytes /
+    PEAK_BYTES, the function's own traffic: each live row's id and its
+    n_used columns read, the (P, 32) output written; the design's counts
+    and segment slots are scratch it chose, not counted). Returns the sums
+    over the step's calls; raises on differing bits."""
+    import torch
+
+    from vidu4d_tpu_torch.ops.rasterize import slab_scatter as ss
+
+    out = {"calls": len(calls), "same_bits": True, "equal_plain": True, "ms": 0.0,
+           "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0, "rows": [],
+           "live_rows": [], "surfels": []}
+    for g, ids, start, count, n_props, n_used in calls:
+        got = ss.slab_scatter(g, ids, start, count, n_props, n_used)
+        out["same_bits"] &= bool(torch.equal(got, ss.slab_scatter(g, ids, start, count,
+                                                                  n_props, n_used)))
+        cpu = [x.cpu() if hasattr(x, "cpu") else x for x in (g, ids, start, count)]
+        out["equal_plain"] &= bool(torch.equal(got.cpu(), ss.slab_scatter_plain(
+            *cpu, n_props, n_used)))
+        live = int(count.clamp(min=0).sum()) if count is not None else g.shape[0]
+        nbytes = float(live * (8 + 4 * n_used) + n_props * ss.WIDTH * 4)
+        gn = g[:, :n_used]
+        out["ms"] += cuda_ms(lambda: ss.slab_scatter(g, ids, start, count, n_props, n_used),
+                             reps)
+        out["plain_ms"] += cuda_ms(lambda: ss.slab_scatter_plain(g, ids, start, count,
+                                                                 n_props, n_used), reps)
+        out["library_ms"] += cuda_ms(lambda: torch.zeros(
+            (n_props, n_used), device=g.device).index_add_(0, ids, gn), reps)
+        out["bound_ms"] += nbytes / PEAK_BYTES * 1e3
+        out["bytes"] += nbytes
+        out["rows"].append(g.shape[0])
+        out["live_rows"].append(live)
+        out["surfels"].append(n_props)
+        del got, cpu, gn
+    out["bound_by"] = "bytes"
+    log(f"[slab_scatter {label}] {json.dumps(out)}")
+    if not calls or not out["same_bits"] or not out["equal_plain"]:
+        raise AssertionError(f"[slab_scatter {label}] {len(calls)} calls, same bits "
+                             f"{out['same_bits']}, equal to the plain version "
+                             f"{out['equal_plain']}")
     return out
 
 
@@ -1376,8 +1440,12 @@ def run_steps(trainer, batch, phases, label):
     if counts["tile_forward"] < 1 or counts["tile_backward"] < 1:
         raise AssertionError(f"[{label}] a kernel of the path never launched: {counts}")
     if counts["tile_forward_plain"] or counts["tile_backward_plain"] \
-            or counts["point_reduce_plain"]:
+            or counts["point_reduce_plain"] or counts["slab_scatter_plain"]:
         raise AssertionError(f"[{label}] a plain version ran on the path: {counts}")
+    # the slab's scatter: one launch a frame, 2 frames a step
+    if counts["slab_scatter"] != 2 * counts["tile_backward"]:
+        raise AssertionError(f"[{label}] slab_scatter launches {counts['slab_scatter']}, "
+                             f"expected 2 a step: {counts}")
     return step_ms, counts, last
 
 
@@ -1684,7 +1752,8 @@ def round_path(tmp, rng, surfels, capacity, res):
     if min(rec["render_cover"]) < ROUND_MIN_COVER:
         problems.append(f"an eval render misses the cloud: cover {rec['render_cover']}")
     if (counts["tile_forward"] != n_steps + n_rounds or counts["tile_backward"] != n_steps
-            or counts["tile_forward_plain"] or counts["tile_backward_plain"]):
+            or counts["tile_forward_plain"] or counts["tile_backward_plain"]
+            or counts["slab_scatter_plain"]):
         problems.append(f"launch counts {counts}")
     shapes = {name: (c["frames"], c["n_extra"]) for name, c in checks.items()}
     if shapes != {name: (1, 0) if where == "render" else (2, 2)
@@ -2183,8 +2252,10 @@ def static_path(tmp, rng):
         warm, timed = STATIC_FULL_SH
         for i in range(warm + timed):
             rec["keep"] = i == warm + timed - 1
-            state, adam, _ = train_step(state, adam, cam.viewmat, cam.intrins, cam.image,
-                                        h, w, 3, rec["config"])
+            with recording(SLAB_SCATTER, "slab_scatter", []) if rec["keep"] \
+                    else contextlib.nullcontext() as sc:
+                state, adam, _ = train_step(state, adam, cam.viewmat, cam.intrins, cam.image,
+                                            h, w, 3, rec["config"])
         full_sh_ms = rec["step_ms"][-timed:]
     finally:
         for key, fn in originals.items():
@@ -2269,12 +2340,16 @@ def static_path(tmp, rng):
                         f"{len(rec['psnr_ms'])} PSNR, {len(rec['ssim_ms'])} SSIM")
     if (counts["tile_forward"] != STATIC_STEPS + n_eval + n_extract
             or counts["tile_backward"] != STATIC_STEPS
-            or counts["tile_forward_plain"] or counts["tile_backward_plain"]):
+            or counts["slab_scatter"] != STATIC_STEPS
+            or counts["tile_forward_plain"] or counts["tile_backward_plain"]
+            or counts["slab_scatter_plain"]):
         problems.append(f"launch counts {counts}")
     if problems:
         raise AssertionError(f"[static] {problems}")
     check = compare_kernels(rec["kept"], rng, f"static {STATIC_W}x{STATIC_H} full SH",
                             reps_p=1, timed=True)
+    # the slab's scatter on the same step's own arguments
+    check["slab_scatter"] = slab_scatter_check(sc, "static")
     return rep, counts, check
 
 
@@ -2404,7 +2479,7 @@ def stage2_path(tmp, flags=S2_FLAGS, rounds=S2_ROUNDS, terms=S2_TERMS, tag="stag
     --inst_id` of it: export_<inst_id>/ with that video's frames, no
     kernel launch); ``handoff_flags``: more flags of the hand-off;
     ``record``: a list that takes the `point_reduce` inputs of one more
-    training step, after the checkpoint check (`recording_point_reduce`).
+    training step, after the checkpoint check (`recording`).
     Returns (report, kernel launches of the Stage-2 training, of the
     hand-off, of the reanimation or None)."""
     import torch
@@ -2536,7 +2611,7 @@ def stage2_path(tmp, flags=S2_FLAGS, rounds=S2_ROUNDS, terms=S2_TERMS, tag="stag
         if not same:
             raise AssertionError(f"{tag} checkpoint: the reloaded trainer differs")
         if record is not None:
-            with recording_point_reduce(record):
+            with recording(POINT_REDUCE, "point_reduce", record):
                 trainer.train_step()
         step_ms = np.asarray(rep["step_ms"])
         rep["step_ms_median"] = float(np.median(step_ms))
@@ -3537,7 +3612,8 @@ def mg_nccl_world1(mesh, state_path):
     """One Stage-3 step with a world-size-1 NCCL group (``mesh``) and one
     without a group, each from the saved state and batch, in
     deterministic-algorithms mode (so that two runs of the same step are
-    bitwise equal: index_add_ and cuBLAS pick their deterministic paths);
+    bitwise equal: cuBLAS picks its deterministic path, and the slab's
+    scatter, `slab_scatter`, has no other);
     and a second step without a group. Returns whether each is bitwise the
     first no-group step (metrics, surfel store with its statistics,
     deformer)."""
@@ -3623,7 +3699,7 @@ def multi_gpu_path(tmp):
         mg_stage2_state(s2_run, S2_FLAGS, os.path.join(mg, "s2.pkl"))
         torch.cuda.empty_cache()
         # one process, twice: the second run against the first is how far the
-        # step drifts from itself (index_add_'s atomics sum in any order, and
+        # step drifts from itself (an index's backward sums by atomics in any order, and
         # Adam moves a parameter by ~lr whatever the size of its gradient)
         s2_state = os.path.join(mg, "s2.pkl")
         one = {"main": mg_stage3_run(None, states["main"], MG_STEPS, hooks=True),
@@ -3768,6 +3844,7 @@ def c1_gate(rng, width, height, n):
     import torch
 
     from vidu4d_tpu_torch.ops.rasterize import common, reference
+    from vidu4d_tpu_torch.ops.rasterize import slab_scatter as ss
     from vidu4d_tpu_torch.ops.rasterize import tile_forward as tf
     from vidu4d_tpu_torch.ops.rasterize.tile_backward import composite_batch, prepare_batch
 
@@ -3797,7 +3874,7 @@ def c1_gate(rng, width, height, n):
 
         def response(p, x, y):
             rows = tf.pack_props(frame(p), t(colors, p.tu.dtype), t(opac, p.tu.dtype),
-                                 ids)[:, None, :]
+                                 ids, *ss.all_rows(n, "cuda"))[:, None, :]
             r = tf.splat_response(rows, x, y)
             return r["rho3d"], common.FILTER_INV_SQUARE * (r["dx"] ** 2 + r["dy"] ** 2)
 
@@ -3893,7 +3970,7 @@ def e2e_path(tmp, rng):
     # launches `point_reduce` as its steps need
     want = {"tile_forward": frames + arg("--s3_rounds") * arg("--s3_iters") + rounds + 1,
             "tile_backward": arg("--s3_rounds") * arg("--s3_iters"), "tile_forward_plain": 0,
-            "tile_backward_plain": 0, "point_reduce_plain": 0}
+            "tile_backward_plain": 0, "point_reduce_plain": 0, "slab_scatter_plain": 0}
     problems, runs = [], []
     first_dir = os.path.join(tmp, "e2e")
     for i, seed in enumerate(E2E_SEEDS):
@@ -4050,7 +4127,7 @@ def depth_eval_path(tmp):
     scenes = arg(DE_DEPTHNET, "--batch") * arg(DE_DEPTHNET, "--rounds")
     want = {"tile_forward": scenes + arg(DE_REGISTRATION, "--frames"), "tile_backward": 0,
             "tile_forward_plain": 0, "tile_backward_plain": 0, "point_reduce": 0,
-            "point_reduce_plain": 0}
+            "point_reduce_plain": 0, "slab_scatter": 0, "slab_scatter_plain": 0}
     rep = {"eval_depthnet": dn, "eval_depth_registration": reg,
            "eval_depthnet_s": t1 - t0, "eval_depth_registration_s": t2 - t1, "counts": counts}
     log(f"[depth eval] {json.dumps(rep)}")
@@ -4152,11 +4229,14 @@ def main() -> int:
             f"{sorted(set(before) - set(moved))}")
         if trainer.warp_opt.count != sum(MAIN_STEPS) or len(moved) < 0.9 * len(before):
             raise AssertionError("the warp AdamW did not update the deformer")
-        # point_reduce on the inputs of one more step of the main path
-        with recording_point_reduce([]) as pr_calls:
+        # point_reduce and slab_scatter on the inputs of one more step of
+        # the main path (two frames, entry-capped tile tables)
+        with recording(POINT_REDUCE, "point_reduce", []) as pr_calls, \
+                recording(SLAB_SCATTER, "slab_scatter", []) as ss_calls:
             trainer.train_step(batch)
         pr_main = point_reduce_check(pr_calls, "main")
-        del pr_calls
+        ss_main = slab_scatter_check(ss_calls, "main")
+        del pr_calls, ss_calls
         main_ms = float(np.median(step_ms))
         del trainer, batch
         torch.cuda.empty_cache()
@@ -4345,7 +4425,18 @@ def main() -> int:
          "stage2_plain_ms": pr_s2["plain_ms"], "stage2_library_ms": pr_s2["library_ms"],
          "stage2_bound_ms": pr_s2["bound_ms"], "stage2_shapes": pr_s2["shapes"],
          "round_launches": round_counts["point_reduce"],
-         "e2e_launches": e2e_counts["point_reduce"]}
+         "e2e_launches": e2e_counts["point_reduce"]},
+        # the slab's entry -> surfel scatter: on the arguments of one full-SH
+        # static step at 1237 x 822 and of one main-path step (ms, bound: the
+        # sums over each step's calls); no TPU kernel, it takes index_add_'s
+        # place
+        {"name": "slab_scatter", "route": "cuda",
+         "source": "vidu4d_tpu_torch/csrc/slab_scatter.cu", "replaces": None,
+         "launches": counts["slab_scatter"], "static_launches": static_counts["slab_scatter"],
+         "round_launches": round_counts["slab_scatter"],
+         "e2e_launches": e2e_counts["slab_scatter"],
+         **{k: static_cmp["slab_scatter"][k] for k in SLAB_SCATTER_FIELDS},
+         **{f"main_{k}": ss_main[k] for k in SLAB_SCATTER_FIELDS}}
     ]}
     log(f"[summary] {card}: median step {main_ms:.3f} ms (default configuration), "
         f"{float(np.median(red_ms)):.3f} ms (reduced); "
@@ -4354,7 +4445,13 @@ def main() -> int:
         f"point_reduce {pr_main['calls']} calls a step {pr_main['ms']:.3f} ms (plain "
         f"{pr_main['plain_ms']:.3f}, cuBLAS {pr_main['library_ms']:.3f}, bound "
         f"{pr_main['bound_ms']:.4f}), stage 2 {pr_s2['calls']} calls {pr_s2['ms']:.3f} ms "
-        f"(plain {pr_s2['plain_ms']:.3f}, bound {pr_s2['bound_ms']:.4f}); "
+        f"(plain {pr_s2['plain_ms']:.3f}, bound {pr_s2['bound_ms']:.4f}); slab_scatter "
+        f"(static step) {static_cmp['slab_scatter']['ms']:.3f} ms (plain "
+        f"{static_cmp['slab_scatter']['plain_ms']:.3f}, index_add_ "
+        f"{static_cmp['slab_scatter']['library_ms']:.3f}, bound "
+        f"{static_cmp['slab_scatter']['bound_ms']:.4f}), main step {ss_main['calls']} calls "
+        f"{ss_main['ms']:.3f} ms (plain {ss_main['plain_ms']:.3f}, index_add_ "
+        f"{ss_main['library_ms']:.3f}, bound {ss_main['bound_ms']:.4f}); "
         + "".join(f"at tile {side}: K1 {c['fwd_ms']:.3f} ms (plain {c['fwd_plain_ms']:.3f}), "
                   f"K2 {c['bwd_ms']:.3f} ms (plain {c['bwd_plain_ms']:.3f}); "
                   for side, (c, _) in tile_rep.items())

@@ -29,6 +29,7 @@ from vidu4d_tpu.ops.rasterize.reference import rasterize_naive_from_projection a
 from vidu4d_tpu.ops.rasterize.xla_tiles import rasterize_tiles_from_projection
 from vidu4d_tpu_torch import kernels
 from vidu4d_tpu_torch.ops.rasterize import common as tc
+from vidu4d_tpu_torch.ops.rasterize import slab_scatter
 from vidu4d_tpu_torch.ops.rasterize import tile_backward as tb
 from vidu4d_tpu_torch.ops.rasterize import tile_forward as tf
 from vidu4d_tpu_torch.ops.rasterize.reference import rasterize_naive_from_projection as tnaive
@@ -189,14 +190,25 @@ def test_entry_cap_exact_when_under_and_truncates_when_over():
     assert not torch.equal(full.color, over.color)
 
 
-def test_row_gather_backward_is_narrow():
+@pytest.mark.parametrize("table", ["all rows", "tiles"])
+def test_row_gather_backward_is_narrow(table):
+    """The backward sums the first n_used columns of the live rows: every
+    row under `slab_scatter.all_rows`, the tiles' segments under a binning's
+    table (rows 5-15, 28-31 and 40-47 are pads, outside them)."""
     rng = np.random.default_rng(8)
     props = t(rng.normal(size=(10, tf.SLAB_WIDTH)), True)
-    ids = torch.as_tensor(rng.integers(0, 10, size=40))
-    g = t(rng.normal(size=(40, tf.SLAB_WIDTH)))
-    tf._RowGather.apply(props, ids, 23).backward(g)
-    dense = torch.zeros(10, tf.SLAB_WIDTH).index_add_(0, ids, g)
-    assert_close(dense[:, :23], props.grad[:, :23], 1e-6)
+    ids = torch.as_tensor(rng.integers(0, 10, size=48))
+    g = t(rng.normal(size=(48, tf.SLAB_WIDTH)))
+    tiles = table == "tiles"
+    start, count = (torch.tensor([0, 16, 32], dtype=torch.int32),
+                    torch.tensor([5, 12, 8], dtype=torch.int32)) if tiles \
+        else slab_scatter.all_rows(48, "cpu")
+    tf._RowGather.apply(props, ids, 23, start, count).backward(g)
+    live = torch.cat([torch.arange(0, 5), torch.arange(16, 28), torch.arange(32, 40)]) \
+        if tiles else torch.arange(48)
+    # the narrow path: index_add_ of the live rows' first 23 columns
+    narrow = torch.zeros(10, 23).index_add_(0, ids[live], g[live, :23])
+    assert_close(narrow, props.grad[:, :23], 1e-6)
     assert torch.equal(props.grad[:, 23:], torch.zeros(10, tf.SLAB_WIDTH - 23))
 
 

@@ -32,7 +32,7 @@
 //      pixels, and a shared-memory pass over the warp partials, written as
 //      the entry's grad row. Every entry belongs
 //      to exactly one item, so there are no atomics; the entry -> splat
-//      reduction is an index_add_ in PyTorch.
+//      reduction over the live rows is slab_scatter.cu's segment sum.
 //
 // cot  (T, tile^2, 10 + n_extra): gC(3) gD gA gN(3) gBGdot gDist gX(n_extra)
 // resid(T, tile^2, 4):            T_fin, n_contrib, S1, S2

@@ -43,6 +43,8 @@ COUNTS = {
     "tile_backward_plain": 0,
     "point_reduce": 0,
     "point_reduce_plain": 0,
+    "slab_scatter": 0,
+    "slab_scatter_plain": 0,
 }
 
 
@@ -137,6 +139,10 @@ def library() -> ctypes.CDLL:
         reduce.restype = i
     lib.vidu4d_point_reduce_occupancy.argtypes = [i, i]
     lib.vidu4d_point_reduce_occupancy.restype = i
+    lib.vidu4d_slab_count.argtypes = [p] * 4 + [i] * 3 + [p]
+    lib.vidu4d_slab_count.restype = i
+    lib.vidu4d_slab_place_sum.argtypes = [p] * 8 + [i] * 4 + [p]
+    lib.vidu4d_slab_place_sum.restype = i
     lib.vidu4d_error_string.argtypes = [i]
     lib.vidu4d_error_string.restype = ctypes.c_char_p
     return lib

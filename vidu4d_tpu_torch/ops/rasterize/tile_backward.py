@@ -240,8 +240,8 @@ def prepare_batch(proj_b: common.SplatProjection, colors_b: torch.Tensor,
         binning = common.bin_splats_aligned(
             proj_f, height, width, tile=tile, span_cap=span_cap, chunk=CHUNK,
             entry_cap=entry_cap)
-        slab_f = pack_props(proj_f, colors_b[f], opacities,
-                            binning.sorted_splat_ids)
+        slab_f = pack_props(proj_f, colors_b[f], opacities, binning.sorted_splat_ids,
+                            binning.tile_start, binning.tile_count)
         slabs.append(slab_f)
         starts.append(binning.tile_start + offset)
         counts.append(binning.tile_count)

@@ -7,7 +7,8 @@ package: the two-plane intersection in affine-coefficient form, so that the
 per (entry, pixel) work is ~2 FMAs per component; but the 2D low-pass term
 reads the splat's projected centre and is evaluated in splat-centred
 coordinates, as `compositing.py` does, not as the Pallas kernel's
-polynomial in absolute pixel coordinates, whose float32 terms cancel).
+polynomial in absolute pixel coordinates, whose float32 terms cancel); its
+backward, the entry -> surfel sum over the live rows, is `slab_scatter`.
 `forward_tiles` runs the forward compositor over every (frame, tile): the
 hand-written CUDA kernels of ``csrc/tile_forward.cu`` for tensors on a CUDA
 device, its plain PyTorch version `forward_tiles_plain` for tensors on the
@@ -28,7 +29,7 @@ import functools
 import torch
 
 from vidu4d_tpu_torch import kernels
-from vidu4d_tpu_torch.ops.rasterize import common
+from vidu4d_tpu_torch.ops.rasterize import common, slab_scatter
 
 # slab columns (pallas_kernel.py:60-73); 21 + n_extra of the 32 are used
 SLAB_WIDTH = 32
@@ -96,34 +97,35 @@ def decode_items(item_off: torch.Tensor, counts: torch.Tensor, seg: int = SEG):
 
 
 class _RowGather(torch.autograd.Function):
-    """props (P, 32) -> rows (E, 32) whose backward scatter-adds only the
-    first ``n_used`` columns (the backward kernel writes no other column,
-    so the rest of the cotangent is zero: `pallas_kernel.py:369-409`)."""
+    """props (P, 32) -> rows (E, 32) = props[ids]. Its backward reads the
+    cotangent's first ``n_used`` columns (the backward kernel writes no
+    other column: `pallas_kernel.py:369-409`) on the live rows of the tile
+    table only, the rows the tile kernels read and write, and sums them
+    into the surfels by `slab_scatter.slab_scatter`."""
 
     @staticmethod
-    def forward(ctx, props, ids, n_used):
-        ctx.save_for_backward(ids)
+    def forward(ctx, props, ids, n_used, tile_start, tile_count):
+        ctx.save_for_backward(ids, tile_start, tile_count)
         ctx.n_props = props.shape[0]
         ctx.n_used = n_used
         return props[ids]
 
     @staticmethod
     def backward(ctx, g):
-        (ids,) = ctx.saved_tensors
-        n = ctx.n_used
-        narrow = torch.zeros((ctx.n_props, n), dtype=g.dtype, device=g.device)
-        narrow.index_add_(0, ids, g[:, :n])
-        rest = torch.zeros((ctx.n_props, g.shape[1] - n), dtype=g.dtype,
-                           device=g.device)
-        return torch.cat([narrow, rest], dim=1), None, None
+        ids, tile_start, tile_count = ctx.saved_tensors
+        return (slab_scatter.slab_scatter(g, ids, tile_start, tile_count, ctx.n_props,
+                                          ctx.n_used), None, None, None, None)
 
 
 def pack_props(proj: common.SplatProjection, colors: torch.Tensor,
-               opacities: torch.Tensor, sorted_ids: torch.Tensor) -> torch.Tensor:
+               opacities: torch.Tensor, sorted_ids: torch.Tensor,
+               tile_start: torch.Tensor, tile_count: torch.Tensor) -> torch.Tensor:
     """One frame's per-splat properties gathered into the (E, 32) slab.
 
     The affine coefficients are computed once per splat here; gradients to
-    Tu/Tv/Tw/center2d flow back through these lines by autograd."""
+    Tu/Tv/Tw/center2d flow back through these lines by autograd, from the
+    live rows of the frame's tile table (its binning's ``tile_start`` /
+    ``tile_count``; `slab_scatter.all_rows` makes every row live)."""
     p = proj.tu.shape[0]
     n_extra = colors.shape[-1] - 3
     if n_extra > MAX_EXTRA:
@@ -145,7 +147,7 @@ def pack_props(proj: common.SplatProjection, colors: torch.Tensor,
         ],
         dim=-1,
     )
-    return _RowGather.apply(props, sorted_ids, EXTRA + n_extra)
+    return _RowGather.apply(props, sorted_ids, EXTRA + n_extra, tile_start, tile_count)
 
 
 def _pixel_centers(num_tiles: int, tiles_x: int, tiles_per_frame: int,
